@@ -20,6 +20,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    bound: the larger of the bytes the function must move over 3.35 TB/s
    and its FLOPs over the peak rate of its type (989 TFLOP/s bf16
    tensor-core, 67 TFLOP/s f32), the H100 SXM data sheet;
+3b. SSD scan vs plain -- the same for the Mamba-2 chunk scan (B3), bf16
+   and f32: the serving engine's chunk (B=1 S=16, mamba2-130m's heads
+   H=24 P=64 N=128), the config's chunk (B=4 S=2048), the odd shapes of
+   ``tests/test_kernels.py``, a ragged S with an initial state, and one
+   large shape (B=8 S=8192).  Also prints y's distance from a float64
+   run of the plain version.  The plain version launches too many kernels
+   to queue behind a spin, so it is captured in a CUDA graph and the
+   graph's replay is timed.  The bound counts the FLOPs of the cheapest
+   exact chunking, one token (the recurrence).  No single PyTorch call
+   computes this function, so it has no library time;
 4. main path -- the paper's calibrated control loop for qwen2-0.5b at its
    published width, through the port's public API: ``calibrate`` on the
    kernels backend over the default grid, the fitted and seed
@@ -29,6 +39,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    kernel must have launched.  A fitted surface with R^2 below 0.95 is
    printed as not to be trusted.  The same loop on the deterministic
    roofline backend must reproduce the JAX reference's revenue rates.
+5. serving path -- mamba2-130m at its published width and depth (random
+   weights from ``init_params``) through ``launch.serve.serve`` with the
+   traffic of the reference's ``launch/serve.py`` (4 servers, 24
+   requests, batch cap 4, chunk 16): every request must complete, and ``ssd_scan`` must launch
+   once per SSM layer per prefill chunk (the counters are zeroed just
+   before).  Prints the summary and the mixed and solo iterations' host
+   wall times.  The same run again under ``torch.profiler`` gives the
+   device time inside its own iterations, hence the card's idle share.
+   Then a whole-prompt ``forward_prefill`` at B=4 S=2048 must give finite
+   logits, and reduced mamba2's logits on the card must match the CPU's
+   (plain versions) on the same weights within 1e-4.
 
 It then prints the per-kernel JSON line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -53,6 +74,20 @@ PEAK = {"bfloat16": 989e12, "float32": 67e12}  # FLOP/s by input type
 # and round the output once, so in bf16 they may differ by one rounding
 # step, at most 2**-7 of the value; f32 leaves only summation order.
 TOL = {"bfloat16": (1e-5, 2.0 ** -7), "float32": (3e-5, 3e-5)}
+# The SSD scan's y against its plain version.  At the reference's
+# 256-token chunk the plain version loses f32 precision in
+# exp(cum_t - cum_s), |cum| reaching about 20 in a chunk: on an H100 at
+# B=4 S=2048 (f32) it was 1.5e-4 off a float64 run where the kernel was
+# 2.7e-5 off, and the card tests found kernel and plain 6.1e-5 apart at
+# values near zero.  So y's atol is 1e-4 (the reference's kernel test
+# allows 2e-4).  The final state is f32 in both dtypes and held to
+# TOL["float32"].
+SSD_Y_TOL = {"bfloat16": (1e-4, 2.0 ** -7), "float32": (1e-4, 3e-5)}
+SSD_ARCH = "mamba2-130m"
+# the serving run's iterations (all engines') that torch.profiler records:
+# 12 mixed and 48 solo ones (the run's timeline is virtual, so the same on
+# any device)
+PROFILE_FROM, PROFILE_N = 150, 60
 R2_TRUST = 0.95  # PERF.md section 2: the limit for trusting a fitted surface
 # The JAX reference's revenue rates for this loop on the roofline backend
 # (repro.calibration + repro.serving.engine_sim.ClusterEngine, seed
@@ -76,12 +111,12 @@ def _bound(dtype_name: str, bytes_: float, flops: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def _check(torch, name, out, ref, dtype_name, shape_desc):
+def _check(torch, name, out, ref, dtype_name, shape_desc, tol=None):
     if out.shape != ref.shape or not torch.isfinite(out).all():
         raise AssertionError(f"{name} {shape_desc}: bad output "
                              f"{tuple(out.shape)} vs {tuple(ref.shape)}")
     err = (out.float() - ref.float()).abs()
-    atol, rtol = TOL[dtype_name]
+    atol, rtol = tol or TOL[dtype_name]
     if not bool((err <= atol + rtol * ref.float().abs()).all()):
         raise AssertionError(f"{name} {shape_desc}: max abs err "
                              f"{err.max().item()} beyond atol {atol} + rtol "
@@ -243,6 +278,301 @@ def check_kernels(torch):
     return rows
 
 
+def _ssd_cases(torch, gen, dt):
+    """(description, args, initial state) of every SSD scan check."""
+    cases = []
+
+    def make(B, S, H, P, N, state=False):
+        x = torch.randn(B, S, H, P, generator=gen, device="cuda", dtype=dt)
+        Bm = 0.5 * torch.randn(B, S, N, generator=gen, device="cuda",
+                               dtype=dt)
+        Cm = 0.5 * torch.randn(B, S, N, generator=gen, device="cuda",
+                               dtype=dt)
+        la = -0.1 * torch.randn(B, S, H, generator=gen, device="cuda").abs()
+        h0 = (torch.randn(B, H, P, N, generator=gen, device="cuda")
+              if state else None)
+        return (x, Bm, Cm, la), h0
+
+    cases.append(("B=1 S=16 H=24 engine chunk", *make(1, 16, 24, 64, 128)))
+    cases.append(("B=4 S=2048 H=24 config chunk",
+                  *make(4, 2048, 24, 64, 128)))
+    for B, S, H, P, N in ((1, 128, 2, 16, 16), (2, 256, 3, 16, 32),
+                          (1, 512, 4, 32, 64)):
+        cases.append((f"B={B} S={S} H={H} P={P} N={N} odd",
+                      *make(B, S, H, P, N)))
+    cases.append(("B=2 S=300 H=24 initial state",
+                  *make(2, 300, 24, 64, 128, state=True)))
+    if dt == torch.bfloat16:
+        cases.append(("B=8 S=8192 H=24 large", *make(8, 8192, 24, 64, 128)))
+    return cases
+
+
+def _ssd_work(x, N, el, with_state):
+    """(bytes, FLOPs) of one scan: each input read and output written
+    once.  Chunking is exact, so the FLOPs are those of the cheapest
+    chunking: per (b, h) and chunk of q tokens 2q^2N + 2q^2P + 4qPN
+    (C B^T, W x, and C h plus the state update), least at q = 1, the
+    per-token recurrence."""
+    B, S, H, P = x.shape
+    bytes_ = el * (2 * B * S * H * P + 2 * B * S * N) + 4 * B * S * H \
+        + 4 * B * H * P * N * (2 if with_state else 1)
+    return bytes_, B * S * H * (2.0 * N + 2.0 * P + 4.0 * P * N)
+
+
+def _graphed(torch, fn):
+    """``fn``'s work captured in one CUDA graph; returns its replay.
+
+    For the SSD scan's plain version: at the config's chunk it launches
+    more kernels per rep than the card's launch queue holds, so its reps
+    cannot be queued behind a spin (``timeit_median_cuda``) one kernel at
+    a time.  A graph's replay is one launch."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm the allocator off the graph
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+def check_ssd(torch):
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
+    from repro_torch.telemetry.timing import timeit_median_cuda
+
+    def ms(fn):
+        return timeit_median_cuda(fn) * 1e3
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows, failures = [], []
+    for dt in (torch.bfloat16, torch.float32):
+        dname = str(dt).split(".")[-1]
+        el = torch.finfo(dt).bits // 8
+        for desc, args, h0 in _ssd_cases(torch, gen, dt):
+            y, h = ssd_scan(*args, initial_state=h0)
+            yp, hp = ssd_scan_plain(*args, initial_state=h0)
+            # the same scan in float64: how far each side is from exact
+            y64, _ = ssd_scan_plain(*(a.double() for a in args),
+                                    initial_state=(None if h0 is None
+                                                   else h0.double()))
+            torch.cuda.synchronize()
+            errs = []  # every shape prints before a failure is raised
+            for what, out, ref, tol in (("y", y, yp, SSD_Y_TOL[dname]),
+                                        ("state", h, hp, TOL["float32"])):
+                try:
+                    errs.append(_check(torch, f"ssd_scan {what}", out, ref,
+                                       dname, f"{dname} {desc}", tol))
+                except AssertionError as e:
+                    failures.append(str(e))
+                    errs.append(float((out.float() - ref.float()).abs()
+                                      .max()))
+            f64 = [float((v.double() - y64).abs().max()) for v in (y, yp)]
+            del y64
+            bytes_, flops = _ssd_work(args[0], args[1].shape[-1], el,
+                                      h0 is not None)
+            row = dict(shape=desc, dtype=dname, max_abs_err=errs[0],
+                       state_err=errs[1], f64_err=f64,
+                       ms=ms(lambda: ssd_scan(*args, initial_state=h0)),
+                       plain_ms=ms(_graphed(torch, lambda: ssd_scan_plain(
+                           *args, initial_state=h0))),
+                       library_ms=None)
+            row["bound_ms"], row["bound_by"] = _bound(dname, bytes_, flops)
+            rows.append(row)
+            print(f"[kernel] ssd_scan {dname} {desc}: "
+                  f"max_abs_err={errs[0]!r} state_err={errs[1]!r} "
+                  f"(atol, rtol {SSD_Y_TOL[dname]}; state {TOL['float32']}) "
+                  f"y vs float64: kernel {f64[0]!r} plain {f64[1]!r} "
+                  f"ms={row['ms']!r} plain_ms={row['plain_ms']!r} (CUDA "
+                  f"graph) library_ms=None bound_ms={row['bound_ms']!r} "
+                  f"({row['bound_by']})")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return rows
+
+
+def _busy_us(kernels, ranges):
+    """Device microseconds of ``kernels`` inside ``ranges``: both sorted
+    lists of (start, end) on the profiler's clock, the ranges disjoint."""
+    import bisect
+
+    starts = [r[0] for r in ranges]
+    busy = 0.0
+    for k0, k1 in kernels:
+        i = bisect.bisect_right(starts, k0) - 1
+        for r0, r1 in ranges[max(i, 0):i + 2]:
+            busy += max(0.0, min(k1, r1) - max(k0, r0))
+    return busy
+
+
+def run_serving(torch):
+    """The serving path at full width: mamba2-130m through ``serve``.
+
+    ``torch.profiler`` records iterations ``PROFILE_FROM`` to
+    ``PROFILE_FROM + PROFILE_N - 1`` of this same run (the first are
+    warm-up; all of them would be millions of events).  Each engine step
+    in that window is a range, ``iteration.mixed`` or ``iteration.solo``:
+    the device time of the kernels inside a kind's ranges, over the
+    ranges' host wall, is the card's busy share there.  The run's host
+    wall per iteration (``iter_wall``) is printed for the iterations
+    outside the window, which neither the profiler nor its start and
+    stop slow.  Returns the run's ``ssd_scan`` launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.prefill_attention.ops import prefill_attention
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.launch.serve import serve
+    from repro_torch.serving.engine import ServerEngine
+
+    cfg = get_config(SSD_ARCH)
+    n_req = 24
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window = {"modes": [], "wall": 0.0}
+    engine_step = ServerEngine.step
+
+    def step(self):  # the engine's step, with the profiler's window
+        if len(window["modes"]) == PROFILE_FROM:
+            torch.cuda.synchronize()
+            prof.start()
+            window["wall"] = -time.perf_counter()
+        mode = "mixed" if self.has_prefill else "solo"
+        with record_function(f"iteration.{mode}"):
+            res = engine_step(self)
+        window["modes"].append(mode)
+        if len(window["modes"]) == PROFILE_FROM + PROFILE_N:
+            torch.cuda.synchronize()
+            window["wall"] += time.perf_counter()
+            prof.stop()
+        return res
+
+    decode_attention.launches = prefill_attention.launches = 0
+    ssd_scan.launches = 0
+    ServerEngine.step = step
+    try:
+        t0 = time.perf_counter()
+        m = serve(cfg, servers=4, requests=n_req, batch_cap=4, chunk=16,
+                  rate=2.0, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ServerEngine.step = engine_step
+    launches = {"decode_attention": decode_attention.launches,
+                "prefill_attention": prefill_attention.launches,
+                "ssd_scan": ssd_scan.launches}
+    n_mix = len(m.iter_wall["mixed"])
+    print(f"[serve] {SSD_ARCH} (layers={cfg.n_layers} d_model={cfg.d_model} "
+          f"vocab={cfg.vocab_size} N={cfg.ssm.d_state} P={cfg.ssm.head_dim}"
+          f") served in {wall:.1f} s; launches {launches}")
+    print(f"[serve] summary {json.dumps(m.summary(), sort_keys=True)}")
+    modes = window["modes"]
+    for mode, ts in m.iter_wall.items():
+        # this mode's iterations inside the profiled window
+        skip = {modes[:i].count(mode) for i in
+                range(PROFILE_FROM, PROFILE_FROM + PROFILE_N)
+                if modes[i] == mode}
+        ts = [t for j, t in enumerate(ts) if j not in skip]
+        srt = sorted(ts)
+        print(f"[serve] {mode} iterations: {len(ts) + len(skip)}; the "
+              f"{len(ts)} unprofiled: host wall ms mean "
+              f"{1e3 * sum(ts) / max(len(ts), 1)!r} median "
+              f"{1e3 * srt[len(srt) // 2] if ts else float('nan')!r} "
+              f"first {1e3 * ts[0] if ts else float('nan')!r}")
+    if not (m.completions == m.arrivals == n_req):
+        raise AssertionError(f"serving: {m.completions} of {m.arrivals} "
+                             f"requests completed, expected {n_req}")
+    if n_mix == 0 or ssd_scan.launches < cfg.n_layers * n_mix:
+        raise AssertionError(f"serving: ssd_scan launched "
+                             f"{ssd_scan.launches} times for {n_mix} prefill "
+                             f"chunks x {cfg.n_layers} SSM layers")
+
+    # the ranges appear twice: on the host, and on the device as the span
+    # of their kernels
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not e.name.startswith("iteration.")]
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in device)
+    total = sum(k1 - k0 for k0, k1 in kernels)
+    print(f"[serve] profiled iterations {PROFILE_FROM}-"
+          f"{PROFILE_FROM + PROFILE_N - 1} of this run: {len(kernels)} device "
+          f"events, {total / 1e3!r} device ms in {1e3 * window['wall']!r} ms "
+          f"of host wall: device idle {1 - total / 1e6 / window['wall']!r}")
+    for mode in ("mixed", "solo"):
+        ranges = sorted((e.time_range.start, e.time_range.end)
+                        for e in events if e.name == f"iteration.{mode}"
+                        and e.device_type == DeviceType.CPU)
+        if not ranges:
+            raise AssertionError(f"serving: no {mode} iteration in the "
+                                 f"profiled window")
+        busy = _busy_us(kernels, ranges)
+        span = sum(r1 - r0 for r0, r1 in ranges)
+        print(f"[serve] profiled {mode} iterations: {len(ranges)}, host wall "
+              f"ms mean {span / 1e3 / len(ranges)!r}, device busy ms mean "
+              f"{busy / 1e3 / len(ranges)!r}: device idle {1 - busy / span!r}")
+    by_kernel = {}
+    for e in device:
+        by_kernel[e.name] = by_kernel.get(e.name, 0.0) \
+            + e.time_range.end - e.time_range.start
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
+    print("[serve] profiled window's top device time (ms per iteration): "
+          + ", ".join(f"{k[:48]} {v / 1e3 / PROFILE_N:.4f}" for k, v in top))
+    return ssd_scan.launches
+
+
+def check_model_outputs(torch):
+    """A whole-prompt prefill at full width; reduced mamba2 on the card
+    against the CPU's plain versions on the same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_map
+
+    cfg = get_config(SSD_ARCH)
+    params = M.init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          device="cuda")
+    B, S = 4, 2048
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    pos = torch.arange(S, dtype=torch.int32, device="cuda")[None].expand(B, S)
+    caches = M.init_cache(cfg, B, S, torch.float32, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = M.forward_prefill(cfg, params, toks, pos, caches)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if logits.shape != (B, 1, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits.float()).all()) \
+            or not bool(torch.isfinite(caches[0]["b0"]["ssm"]).all()):
+        raise AssertionError(f"prefill B={B} S={S}: bad logits "
+                             f"{tuple(logits.shape)} or non-finite values")
+    print(f"[serve] forward_prefill B={B} S={S} at full width: "
+          f"{1e3 * wall!r} ms (host wall, first call), logits finite")
+    del caches
+
+    small = get_config(SSD_ARCH, reduced=True)
+    p_cpu = M.init_model(small, torch.Generator().manual_seed(0),
+                         device="cpu")
+    t = torch.randint(0, small.vocab_size, (2, 64),
+                      generator=torch.Generator().manual_seed(3),
+                      dtype=torch.int32)
+    ps = torch.arange(64, dtype=torch.int32)[None].expand(2, 64)
+    outs = []
+    for dev in ("cpu", "cuda"):
+        lg, cs = M.forward_prefill(
+            small, tree_map(lambda a: a.to(dev), p_cpu), t.to(dev),
+            ps.to(dev), M.init_cache(small, 2, 128, torch.float32, dev))
+        outs.append((lg.cpu(), cs[0]["b0"]["ssm"].cpu()))
+    errs = [float((a - b).abs().max()) for a, b in zip(*outs)]
+    for (a, b), err in zip(zip(*outs), errs):
+        if not bool(((a - b).abs() <= 1e-4 + 1e-4 * a.abs()).all()):
+            raise AssertionError(f"reduced {SSD_ARCH}: card vs CPU max abs "
+                                 f"err {err} beyond 1e-4")
+    print(f"[serve] reduced {SSD_ARCH} on the card matches the CPU: logits "
+          f"max abs err {errs[0]!r}, state {errs[1]!r}")
+
+
 def run_loop(backend: str):
     """The calibrated control loop through the port's public API."""
     from repro_torch.calibration import (CalibrationGrid, calibrate,
@@ -320,6 +650,11 @@ def main() -> int:
     rows = check_kernels(torch)
     print(f"[kernels] checked in {time.perf_counter() - t0:.1f} s")
 
+    # 3b. SSD scan vs plain
+    t0 = time.perf_counter()
+    rows["ssd_scan"] = check_ssd(torch)
+    print(f"[kernels] ssd_scan checked in {time.perf_counter() - t0:.1f} s")
+
     # 4. main path
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.prefill_attention.ops import prefill_attention
@@ -358,15 +693,25 @@ def main() -> int:
                                  f"!= reference {want!r}")
     print(f"[main] roofline loop matches the reference: {ref_rev}")
 
+    # 5. serving path
+    t0 = time.perf_counter()
+    launches["ssd_scan"] = run_serving(torch)
+    check_model_outputs(torch)
+    print(f"[serve] phase 5 in {time.perf_counter() - t0:.1f} s")
+
     # the main path's largest shape per kernel stands for it in the line
     main_shape = {"decode_attention": "B=16 S=512 main",
-                  "prefill_attention": "C=512 causal main"}
+                  "prefill_attention": "C=512 causal main",
+                  "ssd_scan": "B=1 S=16 H=24 engine chunk"}
     sources = {"decode_attention": (
         "src/repro_torch/kernels/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention/kernel.py:79"),
         "prefill_attention": (
         "src/repro_torch/kernels/csrc/prefill_attention.cu",
-        "src/repro/kernels/prefill_attention/kernel.py:93")}
+        "src/repro/kernels/prefill_attention/kernel.py:93"),
+        "ssd_scan": (
+        "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd_scan/kernel.py:68")}
     line = []
     for k, rs in rows.items():
         r = next(r for r in rs if r["shape"] == main_shape[k]

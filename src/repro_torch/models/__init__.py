@@ -1,8 +1,17 @@
-"""Model substrate: configs and parameter-shape trees.
+"""Model substrate: configs, params, mixers, and the unified LM.
 
-Only the shape half of the reference's model code is here (``*_defs``,
-``model_defs``, parameter counts); the forwards are ROADMAP A10.
+The forwards serve the ``ssm`` mixer (mamba2) so far; the other mixers'
+forwards are ROADMAP A10, training ROADMAP A12.
 """
 
 from .config import ModelConfig  # noqa: F401
-from .model import active_param_count, model_defs, param_count  # noqa: F401
+from .model import (  # noqa: F401
+    active_param_count,
+    forward_decode,
+    forward_prefill,
+    init_cache,
+    init_model,
+    model_defs,
+    param_count,
+)
+from .params import init_params, params_from_numpy  # noqa: F401

@@ -1,25 +1,47 @@
-"""Parameter-definition tree of the unified LM and its parameter counts.
+"""Unified model: composes the mixer/channel modules into a full LM.
 
-The shape half of the reference's ``models/model``: ``embed -> [segments
-of layers] -> final_norm -> unembed`` as a nested dict of :class:`PDef`
-leaves under the reference's paths (``seg0/b0/attn/wq``, ...).  The
-forwards (train, prefill, decode) and caches are ROADMAP A10.
+A model is ``embed -> [segments of layers] -> final_norm -> unembed``, as
+in the reference's ``models/model``: ``segment_layers`` compresses the
+per-layer BlockSpec list into ``(superblock, repeat)`` segments, each
+segment's parameters and caches are stacked with a leading ``repeat``
+dim, and the forward loops over it in Python (the reference's
+``lax.scan``).  Parameter trees keep the reference's leaf paths
+(``seg0/b0/ssm/w_in``, ...).
+
+Entry points of the serving path:
+
+* :func:`forward_prefill` -- full/chunked prefill that writes caches and
+  returns the last-position logits.
+* :func:`forward_decode` -- one-token decode step over the caches.
+
+Only the ``ssm`` mixer (mamba2) runs so far; the ``attn``, ``mla`` and
+``rec`` mixers, cross-attention, MoE channels and the encoder raise
+``NotImplementedError`` (ROADMAP A10), and training is ROADMAP A12.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from ..compat import resolve_device
 from .attention import attn_defs
 from .config import BlockSpec, ModelConfig, segment_layers
-from .layers import mlp_defs
+from .layers import apply_mlp, layernorm, mlp_defs, rmsnorm, softcap
 from .mla import mla_defs
 from .moe import moe_defs
-from .params import PDef, _walk
+from .params import PDef, _walk, init_params, tree_map
 from .rglru import rglru_defs
-from .ssm import ssm_defs
+from .ssm import init_ssm_cache, ssm_decode, ssm_defs, ssm_forward
 
-__all__ = ["model_defs", "param_count", "active_param_count"]
+__all__ = ["model_defs", "param_count", "active_param_count", "init_cache",
+           "forward_prefill", "forward_decode", "init_model"]
+
+
+def _not_ported(what: str):
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP A10); the port "
+        f"serves the ssm mixer (mamba2-130m) so far")
 
 
 # ------------------------------------------------------------------ norms
@@ -32,6 +54,12 @@ def _norm_defs(cfg: ModelConfig, d: int) -> dict:
             "bias": PDef((d,), ("embed",), "zeros"),
         }
     return {"scale": PDef((d,), ("embed",), "zeros")}  # rmsnorm (1 + scale)
+
+
+def _apply_norm(cfg: ModelConfig, p: dict, x):
+    if cfg.norm == "layernorm":
+        return layernorm(x, p["scale"], p["bias"])
+    return rmsnorm(x, p["scale"])
 
 
 # ------------------------------------------------------------- block defs
@@ -111,6 +139,151 @@ def model_defs(cfg: ModelConfig) -> dict:
             "proj": PDef((2 * d, d), ("ff", "embed")),
         }
     return defs
+
+
+# ------------------------------------------------------------------ caches
+
+
+def _block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int, max_len: int,
+                 dtype, device):
+    if spec.mixer != "ssm":
+        raise _not_ported(f"the {spec.mixer!r} mixer's cache")
+    if spec.cross_attn:
+        raise _not_ported("cross-attention")
+    return init_ssm_cache(cfg.ssm, cfg.d_model, batch, dtype, device)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None):
+    """Per-segment stacked cache tree (leading dim = segment repeat)."""
+    device = resolve_device(device)
+    out = []
+    for block, rep in segment_layers(cfg.block_specs()):
+        seg = {}
+        for bi, spec in enumerate(block):
+            c = _block_cache(cfg, spec, batch, max_len, dtype, device)
+            seg[f"b{bi}"] = tree_map(
+                lambda a: a[None].expand((rep,) + a.shape).clone(), c)
+        out.append(seg)
+    return out
+
+
+# ------------------------------------------------------------- block apply
+
+
+def _apply_block(cfg: ModelConfig, spec: BlockSpec, p, x, *, mode, cache):
+    """One layer. mode: "prefill" | "decode"."""
+    h = _apply_norm(cfg, p["ln1"], x)
+    new_cache = dict(cache) if cache is not None else None
+    if spec.mixer != "ssm":
+        raise _not_ported(f"the {spec.mixer!r} mixer")
+    # the SSM starts every prefill from a zero state, as the reference's
+    # does whatever its ``continuation`` (C-ref4)
+    sub = ({k: cache[k] for k in ("conv", "ssm")}
+           if cache is not None else None)
+    if mode == "decode":
+        out, nc = ssm_decode(cfg.ssm, p["ssm"], h, sub)
+        new_cache.update(nc)
+    else:
+        out, nc = ssm_forward(cfg.ssm, p["ssm"], h, cache=sub)
+        if nc is not None:
+            new_cache.update(nc)
+    x = x + out
+
+    if spec.cross_attn:
+        raise _not_ported("cross-attention")
+    if spec.channel == "mlp":
+        h = _apply_norm(cfg, p["ln2"], x)
+        mp = tree_map(lambda a: a.to(x.dtype), p["mlp"])
+        x = x + apply_mlp(mp, h, cfg.mlp_act)
+    elif spec.channel == "moe":
+        raise _not_ported("the MoE channel")
+    return x, new_cache
+
+
+# --------------------------------------------------------------- backbone
+
+
+def _run_segments(cfg: ModelConfig, params, x, *, mode, caches):
+    segs = segment_layers(cfg.block_specs())
+    new_caches = [] if caches is not None else None
+    for si, (block, rep) in enumerate(segs):
+        seg_p = params[f"seg{si}"]
+        seg_c = caches[si] if caches is not None else None
+        ncs = []
+        for r in range(rep):  # the reference's lax.scan over the stack
+            p_r = tree_map(lambda a: a[r], seg_p)
+            c_r = tree_map(lambda a: a[r], seg_c) if seg_c is not None \
+                else None
+            nc = {} if c_r is not None else None
+            for bi, spec in enumerate(block):
+                x, c = _apply_block(
+                    cfg, spec, p_r[f"b{bi}"], x, mode=mode,
+                    cache=(c_r[f"b{bi}"] if c_r else None))
+                if nc is not None:
+                    nc[f"b{bi}"] = c
+            ncs.append(nc)
+        if new_caches is not None:
+            new_caches.append(tree_map(lambda *xs: torch.stack(xs), *ncs))
+    return x, new_caches
+
+
+def _logits(cfg: ModelConfig, params, x):
+    x = _apply_norm(cfg, params["final_norm"], x)
+    if cfg.tie_embeddings:
+        w = params["embed"].to(x.dtype).T
+    else:
+        w = params["unembed"].to(x.dtype)
+    logits = torch.einsum("bsd,dv->bsv", x, w)
+    if cfg.logit_softcap is not None:
+        logits = softcap(logits.float(), cfg.logit_softcap)
+    return logits
+
+
+def _scale_embed(cfg: ModelConfig, x):
+    # the reference multiplies by a numpy float32 scalar, which promotes
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
+    return x * float(np.sqrt(cfg.d_model).astype(np.float32))
+
+
+def _act_dtype(cfg: ModelConfig, x):
+    return x.to(torch.bfloat16) if cfg.param_dtype == "bfloat16" else x
+
+
+def _embed(cfg: ModelConfig, params, tokens):
+    x = params["embed"][tokens.long()]
+    if cfg.scale_embed:
+        x = _scale_embed(cfg, x)
+    return _act_dtype(cfg, x)
+
+
+# ------------------------------------------------------------ entry points
+
+
+def forward_prefill(cfg: ModelConfig, params, tokens, positions, caches):
+    """Prefill a chunk; returns (last-position logits, new caches).
+
+    positions: (B, S) absolute positions of ``tokens``, as the reference
+    takes them; the ``ssm`` mixer does not read them.
+    """
+    if cfg.encoder is not None:
+        raise _not_ported("the encoder")
+    x, new_caches = _run_segments(cfg, params, _embed(cfg, params, tokens),
+                                  mode="prefill", caches=caches)
+    return _logits(cfg, params, x[:, -1:]), new_caches
+
+
+def forward_decode(cfg: ModelConfig, params, tokens, positions, caches):
+    """One-token decode. tokens (B, 1); positions (B,) current index (not
+    read by the ``ssm`` mixer)."""
+    x, new_caches = _run_segments(cfg, params, _embed(cfg, params, tokens),
+                                  mode="decode", caches=caches)
+    return _logits(cfg, params, x), new_caches
+
+
+def init_model(cfg: ModelConfig, generator: torch.Generator,
+               dtype=torch.float32, device=None):
+    return init_params(model_defs(cfg), generator, dtype, device)
 
 
 def param_count(cfg: ModelConfig) -> int:

@@ -1,6 +1,17 @@
-"""Serving substrate: the calibrated iteration-level cluster engine.
+"""Serving substrate: the real-compute data plane (steps, engine,
+cluster) and the calibrated iteration-level cluster engine.
 
-The real-compute data plane (steps, engine, cluster) is ROADMAP A10.
+The data plane serves the ``ssm`` mixer (mamba2) so far; attention
+models need the attention forwards (ROADMAP A10).
 """
 
+from .cluster import ClusterMetrics, RealCluster  # noqa: F401
+from .engine import ServerEngine, SlotRequest  # noqa: F401
 from .engine_sim import ClusterEngine, EngineConfig, EngineMetrics  # noqa: F401
+from .steps import (  # noqa: F401
+    greedy_sample,
+    init_server_state,
+    make_decode_step,
+    make_mixed_step,
+    make_prefill_step,
+)

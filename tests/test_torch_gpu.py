@@ -17,16 +17,26 @@ import pytest
 import torch
 
 from repro_torch.calibration import CalibrationGrid, calibrate
+from repro_torch.configs import get_config
 from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                       decode_attention_plain)
 from repro_torch.kernels.prefill_attention.ops import (
     prefill_attention, prefill_attention_plain)
+from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
+from repro_torch.launch.serve import serve
+from repro_torch.models import model as M
+from repro_torch.models.params import tree_map
 from repro_torch.telemetry.timing import timeit_median_cuda
 
 pytestmark = pytest.mark.gpu
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 TOL = {"float32": (3e-5, 3e-5), "bfloat16": (1e-5, 2.0 ** -7)}  # atol, rtol
+# The SSD scan's y: the plain version at the reference's 256-token chunk
+# loses f32 precision in exp(cum_t - cum_s) over long chunks, and kernel
+# and plain differed by 6.1e-5 near zero at B=4 S=2048 on an H100
+# (chip_smoke.py, SSD_Y_TOL), so y's atol is 1e-4.
+SSD_Y_TOL = {"float32": (1e-4, 3e-5), "bfloat16": (1e-4, 2.0 ** -7)}
 PREFILL_KW = [dict(causal=True), dict(causal=True, window=96),
               dict(causal=True, attn_softcap=50.0),
               dict(causal=True, prefix_len=64), dict(causal=False)]
@@ -149,3 +159,89 @@ def test_cuda_timer_reads_the_card_not_the_host(cuda):
 def test_cuda_timer_raises_when_fn_waits_on_the_card(cuda):
     with pytest.raises(RuntimeError, match="wait on the card"):
         timeit_median_cuda(torch.cuda.synchronize, warmup=0, reps=1)
+
+
+def _scan_inputs(device, dtype, B, S, H, P, N, seed=3):
+    """x, Bm, Cm in ``dtype`` and log_a f32, as ``tests/test_kernels.py``
+    draws them."""
+    x, Bm, Cm = _randn(device, dtype, (B, S, H, P), (B, S, N), (B, S, N),
+                       seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    la = torch.from_numpy(-0.1 * np.abs(rng.standard_normal(
+        (B, S, H))).astype(np.float32)).to(device)
+    return x, 0.5 * Bm, 0.5 * Cm, la
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,S,H,P,N", [(1, 16, 24, 64, 128),
+                                       (4, 2048, 24, 64, 128),
+                                       (1, 128, 2, 16, 16),
+                                       (2, 256, 3, 16, 32),
+                                       (1, 512, 4, 32, 64),
+                                       (2, 100, 3, 16, 32),
+                                       (1, 33, 2, 64, 256)])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_ssd_scan_kernel_matches_plain(cuda, dtype, B, S, H, P, N,
+                                       with_state):
+    x, Bm, Cm, la = _scan_inputs(cuda, dtype, B, S, H, P, N)
+    h0 = None
+    if with_state:
+        h0 = _randn(cuda, "float32", (B, H, P, N), seed=9)[0]
+    n = ssd_scan.launches
+    y, h = ssd_scan(x, Bm, Cm, la, initial_state=h0)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == n + 1
+    yp, hp = ssd_scan_plain(x, Bm, Cm, la, initial_state=h0)
+    assert y.dtype == x.dtype and h.dtype == torch.float32
+    atol, rtol = SSD_Y_TOL[dtype]
+    torch.testing.assert_close(y.float(), yp.float(), atol=atol, rtol=rtol)
+    _close(h, hp, "float32")
+
+
+def test_ssd_scan_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    x, Bm, Cm, la = _scan_inputs(cuda, "bfloat16", 1, 16, 2, 24, 16)
+    with pytest.raises(ValueError, match="head_dim"):
+        ssd_scan(x, Bm, Cm, la)  # P = 24 is not a multiple of 16
+    x, Bm, Cm, la = _scan_inputs(cuda, "bfloat16", 1, 16, 2, 16, 12)
+    with pytest.raises(ValueError, match="d_state"):
+        ssd_scan(x, Bm, Cm, la)  # N = 12 is not a multiple of 8
+    x, Bm, Cm, la = _scan_inputs(cuda, "bfloat16", 1, 16, 2, 16, 16)
+    with pytest.raises(TypeError, match="dtype"):
+        ssd_scan(x.half(), Bm.half(), Cm.half(), la)
+    with pytest.raises(ValueError, match="one device and dtype"):
+        ssd_scan(x, Bm.float(), Cm, la)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), Bm, Cm, la)
+    with pytest.raises(ValueError, match="device"):
+        ssd_scan(x, Bm, Cm, la.cpu())
+    with pytest.raises(ValueError, match="float32"):
+        ssd_scan(x, Bm, Cm, la.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="empty"):
+        ssd_scan(*_scan_inputs(cuda, "bfloat16", 1, 0, 2, 16, 16))
+
+
+def test_mamba2_serving_runs_through_the_kernel(cuda):
+    cfg = get_config("mamba2-130m", reduced=True)
+    n = ssd_scan.launches
+    m = serve(cfg, servers=2, requests=4, device=cuda)
+    assert m.completions == m.arrivals == 4
+    n_layers = cfg.n_layers
+    assert ssd_scan.launches - n == n_layers * len(m.iter_wall["mixed"])
+
+
+def test_mamba2_logits_on_the_card_match_the_cpu(cuda):
+    cfg = get_config("mamba2-130m", reduced=True)
+    params = M.init_model(cfg, torch.Generator().manual_seed(0),
+                          device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32))
+    pos = torch.arange(64, dtype=torch.int32)[None].expand(2, 64)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda a: a.to(dev), params)
+        logits, caches = M.forward_prefill(
+            cfg, p, toks.to(dev), pos.to(dev),
+            M.init_cache(cfg, 2, 128, torch.float32, dev))
+        out[str(dev)] = (logits.cpu(), caches[0]["b0"]["ssm"].cpu())
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
