@@ -9,12 +9,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    as ``nvidia-smi`` reports them;
 2. build -- compiles every CUDA kernel from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once) and prints ``ptxas``'s resource
-   report;
+   report, one line per kernel instantiation;
 3. kernels vs plain -- calls each kernel's wrapper on the card at the
    shapes the calibration loop gives it (bf16 and f32), at odd and masked
-   shapes, and at one large shape per kernel, and holds each result to the
-   kernel's plain PyTorch version on the same inputs (``TOL``).  Prints,
-   per shape: max error, kernel ms, plain ms, ``scaled_dot_product_attention``
+   shapes, and at one large shape per kernel and dtype, and holds each
+   result to the kernel's plain PyTorch version on the same inputs
+   (``TOL``).  Each bf16 prefill call must go through the tensor-core
+   route.  Prints, per shape: the route (prefill: ``tc`` or ``fp32``;
+   decode: the cluster plan), max error, kernel ms, plain ms,
+   ``scaled_dot_product_attention``
    ms (a yardstick the port never calls), each the device time that
    ``timeit_median_cuda`` gives, as the calibration measures it, and the
    bound: the larger of the bytes the function must move over 3.35 TB/s
@@ -36,7 +39,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    iteration-time models, the bundled planning LP, gate-and-route, and a
    ``ClusterEngine`` replay of the Azure-like trace on 10 servers.  The
    kernel launch counters are zeroed just before and read just after; each
-   kernel must have launched.  A fitted surface with R^2 below 0.95 is
+   kernel must have launched, every prefill launch on the tensor-core
+   route.  A fitted surface with R^2 below 0.95 is
    printed as not to be trusted.  The same loop on the deterministic
    roofline backend must reproduce the JAX reference's revenue rates.
 5. serving path -- mamba2-130m at its published width and depth (random
@@ -105,6 +109,29 @@ def _nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _print_ptxas(lib: str, log: str) -> None:
+    """One ``[build]`` line per kernel from ``ptxas -v``: its
+    instantiation, registers, spills."""
+    import re
+    import shutil
+
+    name, spill = "?", ""
+    for line in log.splitlines():
+        found = re.search(r"Function properties for (\S+)", line)
+        if found:
+            name, spill = found.group(1), ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            if shutil.which("c++filt"):
+                name = subprocess.run(["c++filt", name], capture_output=True,
+                                      text=True).stdout.strip() or name
+            name = name.replace("repro_torch::(anonymous namespace)::",
+                                "").split("(")[0]
+            print(f"[build] {lib}: {name}: "
+                  f"{line.split(':', 1)[-1].strip()}; {spill}")
+
+
 def _bound(dtype_name: str, bytes_: float, flops: float):
     t_bytes, t_ops = bytes_ / HBM_BW, flops / PEAK[dtype_name]
     return (max(t_bytes, t_ops) * 1e3,
@@ -154,9 +181,8 @@ def _decode_cases(torch, gen, dt):
                                      device="cuda").expand(2, 256).contiguous()
     kw["q_positions"] = args[3] - 1
     cases.append(("B=2 S=256 window=64 softcap", args, kw, 456))
-    if dt == torch.bfloat16:
-        args, kw = make(64, 4096, [4096] * 64)
-        cases.append(("B=64 S=4096 large", args, kw, 64 * 4096))
+    args, kw = make(64, 4096, [4096] * 64)
+    cases.append(("B=64 S=4096 large", args, kw, 64 * 4096))
     return H, KV, D, cases
 
 
@@ -177,8 +203,7 @@ def _prefill_cases(torch, gen, dt):
     cases.append(("C=200 window=96", *make(200, window=96)))
     cases.append(("C=200 prefix=64", *make(200, prefix_len=64)))
     cases.append(("C=200 softcap=50", *make(200, attn_softcap=50.0)))
-    if dt == torch.bfloat16:
-        cases.append(("C=4096 causal large", *make(4096)))
+    cases.append(("C=4096 causal large", *make(4096)))
     return H, KV, D, cases
 
 
@@ -208,7 +233,7 @@ def _sdpa(torch, q, k, v, **kw):
 
 def check_kernels(torch):
     from repro_torch.kernels.decode_attention.ops import (
-        decode_attention, decode_attention_plain)
+        decode_attention, decode_attention_plain, decode_plan)
     from repro_torch.kernels.prefill_attention.ops import (
         prefill_attention, prefill_attention_plain)
     from repro_torch.telemetry.timing import timeit_median_cuda
@@ -216,6 +241,7 @@ def check_kernels(torch):
     def ms(fn):
         return timeit_median_cuda(fn) * 1e3
 
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {"decode_attention": [], "prefill_attention": []}
     for dt in (torch.bfloat16, torch.float32):
@@ -236,7 +262,11 @@ def check_kernels(torch):
             lib = None
             if not kw and bool((kl == k.shape[1]).all()):
                 lib = ms(_sdpa(torch, q, k, v))
+            plan = decode_plan(B, k.shape[1], H, KV, D, el, n_sm)
             row = dict(shape=desc, dtype=dname, max_abs_err=err,
+                       route=f"cluster={plan.n_split} "
+                       f"split_len={plan.split_len} kw={plan.kw} "
+                       f"blocks={plan.blocks}",
                        ms=ms(lambda: decode_attention(q, k, v, kl, **kw)),
                        plain_ms=ms(lambda: decode_attention_plain(
                            q, k, v, kl, **kw)),
@@ -245,8 +275,13 @@ def check_kernels(torch):
             rows["decode_attention"].append(row)
 
         H, KV, D, cases = _prefill_cases(torch, gen, dt)
+        route = "tc" if dt == torch.bfloat16 else "fp32"
         for desc, (q, k, v), kw in cases:
+            n_route = getattr(prefill_attention, f"launches_{route}")
             out = prefill_attention(q, k, v, **kw)
+            if getattr(prefill_attention, f"launches_{route}") != n_route + 1:
+                raise AssertionError(f"prefill_attention {dname} {desc}: "
+                                     f"did not launch the {route} route")
             ref = prefill_attention_plain(q, k, v, **kw)
             torch.cuda.synchronize()
             err = _check(torch, "prefill_attention", out, ref, dname, desc)
@@ -259,7 +294,7 @@ def check_kernels(torch):
             if set(kw) <= {"causal"}:
                 lib = ms(_sdpa(torch, q, k, v,
                                is_causal=kw.get("causal", True)))
-            row = dict(shape=desc, dtype=dname, max_abs_err=err,
+            row = dict(shape=desc, dtype=dname, max_abs_err=err, route=route,
                        ms=ms(lambda: prefill_attention(q, k, v, **kw)),
                        plain_ms=ms(lambda: prefill_attention_plain(
                            q, k, v, **kw)),
@@ -269,8 +304,8 @@ def check_kernels(torch):
 
     for name, rs in rows.items():
         for r in rs:
-            print(f"[kernel] {name} {r['dtype']} {r['shape']}: "
-                  f"max_abs_err={r['max_abs_err']!r} "
+            print(f"[kernel] {name} {r['dtype']} {r['shape']} "
+                  f"({r['route']}): max_abs_err={r['max_abs_err']!r} "
                   f"(atol, rtol {TOL[r['dtype']]}) ms={r['ms']!r} "
                   f"plain_ms={r['plain_ms']!r} "
                   f"library_ms={r['library_ms']!r} bound_ms={r['bound_ms']!r} "
@@ -641,9 +676,8 @@ def main() -> int:
     print(f"[build] {len(libs)} kernels in {time.perf_counter() - t0:.1f} s")
     for lib in libs.values():
         log = lib.with_suffix(".log")
-        for line in (log.read_text().splitlines() if log.exists() else []):
-            if "registers" in line or "spill" in line:
-                print(f"[build] {lib.name.split('-')[0]}: {line.strip()}")
+        _print_ptxas(lib.name.split("-")[0],
+                     log.read_text() if log.exists() else "")
 
     # 3. kernels vs plain
     t0 = time.perf_counter()
@@ -662,11 +696,17 @@ def main() -> int:
     t0 = time.perf_counter()
     decode_attention.launches = 0
     prefill_attention.launches = 0
+    prefill_attention.launches_tc = prefill_attention.launches_fp32 = 0
     art, revenue = run_loop("kernels")
     launches = {"decode_attention": decode_attention.launches,
                 "prefill_attention": prefill_attention.launches}
+    routes = {"tc": prefill_attention.launches_tc,
+              "fp32": prefill_attention.launches_fp32}
     print(f"[main] calibrate+plan+replay in {time.perf_counter() - t0:.1f} s; "
-          f"launches {launches}")
+          f"launches {launches}; prefill_attention by route {routes}")
+    if routes["tc"] != launches["prefill_attention"]:
+        raise AssertionError(f"the bf16 loop's prefill went off the "
+                             f"tensor-core route: {routes}")
     if art.backend != "kernels" or art.hw.get("device") != name:
         raise AssertionError(f"artifact backend {art.backend!r}, device "
                              f"{art.hw.get('device')!r}; expected kernels on "

@@ -20,20 +20,84 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..build import load
 from .._checks import DTYPE_CODES, check_launch, check_tensors
 
-__all__ = ["decode_attention", "decode_attention_plain"]
+__all__ = ["DecodePlan", "decode_attention", "decode_attention_plain",
+           "decode_plan"]
 
-_TILE_ELEMS = 4096  # keys per shared-memory tile x head_dim
-_SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
-_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
-             + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p])
+# csrc/decode_attention.cu: warps per block, stages of each warp's K/V ring
+_WARPS, _STAGES = 4, 3
+_RING_BYTES = 96 * 1024  # a block's K/V rings: two blocks fit on an SM
+_MAX_CLUSTER = 8  # the portable thread-block cluster size
+_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
+             + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+class DecodePlan(NamedTuple):
+    """How the CUDA kernel splits one call (``decode_plan``)."""
+
+    gc: int  # query heads a block takes (a power of two, at most 8)
+    n_pass: int  # blocks over the G heads of one (b, kv head): ceil(G / gc)
+    dpl: int  # output columns per lane (32 * dpl >= D)
+    kw: int  # keys per warp tile
+    tile: int  # the split's unit: the largest warp tile the ring holds
+    n_split: int  # blocks per cluster, each over split_len keys of S
+    split_len: int  # keys per block: a multiple of tile, hence of kw
+    smem: int  # dynamic shared memory of a block, bytes
+    rows: int  # clusters: B * KV * n_pass
+
+    @property
+    def blocks(self) -> int:
+        return self.n_split * self.rows
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=4096)
+def decode_plan(B: int, S: int, H: int, KV: int, D: int, elem_bytes: int,
+                n_sm: int) -> DecodePlan:
+    """The kernel's split of a (B, S, H, KV, D) call on a card of ``n_sm``
+    SMs.
+
+    The S-splits of one (b, kv head, pass) are the blocks of one cluster
+    (at most 8).  The cluster size is the smallest that puts at least one
+    block on every SM, or the largest S allows in whole tiles of ``tile``
+    keys, the largest warp tile whose rings fit ``_RING_BYTES``.  The warp
+    tile ``kw`` is then the smallest (from 8 keys) that gives each of the
+    4 warps at most one tile of the block's span, so short spans run on
+    every warp, and their small rings let clusters of 8 fit on the card at
+    once.
+    """
+    G = H // KV
+    gc = next((c for c in (1, 2, 4) if c >= G), 8)
+    n_pass = _cdiv(G, gc)
+    dpl = next(c for c in (2, 4, 8) if 32 * c >= D)
+    tile = next((w for w in (32, 16, 8) if
+                 _WARPS * _STAGES * 2 * w * D * elem_bytes <= _RING_BYTES), 4)
+    rows = B * KV * n_pass
+    target = _cdiv(n_sm, rows)
+    # (clusters, keys per block) for each cluster size; the same count can
+    # come from several sizes, the smallest split_len balances best
+    options = {}
+    for n in range(1, _MAX_CLUSTER + 1):
+        split_len = _cdiv(_cdiv(S, n), tile) * tile
+        options.setdefault(_cdiv(S, split_len), split_len)
+    n_split = min((n for n in options if n >= target), default=max(options))
+    split_len = options[n_split]
+    kw = min(8, tile)
+    while kw < tile and _WARPS * kw < split_len:
+        kw *= 2
+    ring = _WARPS * _STAGES * 2 * kw * D * elem_bytes
+    smem = ring + 4 * (2 * gc * D + _WARPS * kw * gc + 2 * gc)
+    return DecodePlan(gc, n_pass, dpl, kw, tile, n_split, split_len, smem,
+                      rows)
 
 
 def _positions(kv_len, S, k_positions, q_positions):
@@ -87,18 +151,6 @@ def _launcher():
     return fn
 
 
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def _split(S: int, n_rows: int, tile: int, n_sm: int):
-    """Split S into whole tiles so that about four blocks per SM are in
-    flight; returns ``(n_split, split_len)``."""
-    n_split = max(1, min(_cdiv(4 * n_sm, n_rows), _cdiv(S, tile)))
-    split_len = _cdiv(_cdiv(S, n_split), tile) * tile
-    return _cdiv(S, split_len), split_len
-
-
 def decode_attention(q, k_cache, v_cache, kv_len, *,
                      window: Optional[int] = None, k_positions=None,
                      q_positions=None, attn_softcap: Optional[float] = None):
@@ -134,12 +186,6 @@ def decode_attention(q, k_cache, v_cache, kv_len, *,
     if D % 8 or D > 256:
         raise ValueError(f"decode_attention: head_dim {D} must be a multiple "
                          f"of 8 and at most 256")
-    G = H // KV
-    tile = max(8, _TILE_ELEMS // D)
-    smem = 4 * (2 * G * D + tile * (2 * D + 1) + G * tile + 3 * G)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"decode_attention: G={G}, D={D} needs {smem} B of "
-                         f"shared memory, more than {_SMEM_LIMIT}")
     if B == 0 or S == 0:
         raise ValueError(f"decode_attention: empty batch or cache "
                          f"(B={B}, S={S}) has nothing to launch")
@@ -153,26 +199,19 @@ def decode_attention(q, k_cache, v_cache, kv_len, *,
                              "q_positions (B,) must be on q's device")
     index = q.device.index if q.device.index is not None \
         else torch.cuda.current_device()
-    n_split, split_len = _split(S, B * KV, tile, _sm_count(index))
+    plan = decode_plan(B, S, H, KV, D, q.element_size(), _sm_count(index))
     out = torch.empty_like(q)
-    part_m = part_l = part_acc = None
-    if n_split > 1:  # one scratch buffer: m and l per (row, split, head), acc
-        n = B * KV * n_split * G
-        scratch = torch.empty(n * (D + 2), dtype=torch.float32,
-                              device=q.device)
-        part_m, part_l, part_acc = scratch[:n], scratch[n:2 * n], \
-            scratch[2 * n:]
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     err = _launcher()(
         index, DTYPE_CODES[q.dtype], ptr(q), ptr(k_cache), ptr(v_cache),
-        ptr(kv_len), ptr(kp), ptr(qp), ptr(out), ptr(part_m), ptr(part_l),
-        ptr(part_acc), B, S, H, KV, D, tile,
+        ptr(kv_len), ptr(kp), ptr(qp), ptr(out), B, S, H, KV, D, plan.gc,
+        plan.dpl, plan.kw, plan.n_pass, plan.n_split, plan.split_len,
         0 if window is None else int(window), 1.0 / math.sqrt(D),
-        0.0 if attn_softcap is None else float(attn_softcap), n_split,
-        split_len, torch.cuda.current_stream(q.device).cuda_stream)
+        0.0 if attn_softcap is None else float(attn_softcap), plan.smem,
+        torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("decode_attention", err)
     decode_attention.launches += 1
     return out

@@ -69,8 +69,11 @@ def prefill_attention(q, k, v, *, causal: bool = True,
                       prefix_len: Optional[int] = None):
     """q (B,S,H,D); k, v (B,S,KV,D) -> (B,S,H,D).
 
-    CUDA tensors launch the kernel (``csrc/prefill_attention.cu``); CPU
-    tensors run :func:`prefill_attention_plain`.
+    CUDA tensors launch the kernel (``csrc/prefill_attention.cu``): bf16
+    the tensor-core route, f32 the FP32-pipe route (TF32 would not hold
+    f32 to its 3e-5).  CPU tensors run :func:`prefill_attention_plain`.
+    Launches count in ``prefill_attention.launches`` and, by route, in
+    ``prefill_attention.launches_tc`` and ``launches_fp32``.
     """
     check_tensors("prefill_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
@@ -109,7 +112,13 @@ def prefill_attention(q, k, v, *, causal: bool = True,
         torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("prefill_attention", err)
     prefill_attention.launches += 1
+    if q.dtype == torch.bfloat16:
+        prefill_attention.launches_tc += 1
+    else:
+        prefill_attention.launches_fp32 += 1
     return out
 
 
 prefill_attention.launches = 0
+prefill_attention.launches_tc = 0  # bf16: wgmma tensor-core kernel
+prefill_attention.launches_fp32 = 0  # f32: FP32-pipe kernel

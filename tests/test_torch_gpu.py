@@ -19,7 +19,8 @@ import torch
 from repro_torch.calibration import CalibrationGrid, calibrate
 from repro_torch.configs import get_config
 from repro_torch.kernels.decode_attention.ops import (decode_attention,
-                                                      decode_attention_plain)
+                                                      decode_attention_plain,
+                                                      decode_plan)
 from repro_torch.kernels.prefill_attention.ops import (
     prefill_attention, prefill_attention_plain)
 from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
@@ -66,8 +67,13 @@ def _close(got, want, dtype):
                                         (4, 300, 4, 2, 32),
                                         (2, 1000, 8, 4, 128),
                                         (2, 64, 8, 4, 256),
-                                        (64, 4096, 14, 2, 64)])
+                                        (64, 4096, 14, 2, 64),
+                                        (3, 2000, 14, 2, 64),
+                                        (2, 333, 20, 2, 64),
+                                        (16, 16, 14, 2, 64)])
 def test_decode_kernel_matches_plain(cuda, dtype, B, S, H, KV, D):
+    """Ragged kv_len with an empty row; (3, 2000) takes the largest
+    cluster (8 blocks) and (2, 333) two passes over G = 10 heads."""
     q, k, v = _randn(cuda, dtype, (B, 1, H, D), (B, S, KV, D), (B, S, KV, D))
     lens = [S, 0, S // 2, 1][:B] + [S - i for i in range(max(0, B - 4))]
     kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
@@ -78,13 +84,18 @@ def test_decode_kernel_matches_plain(cuda, dtype, B, S, H, KV, D):
     _close(out, decode_attention_plain(q, k, v, kv_len), dtype)
     if B > 1:
         assert not out[1].any()  # kv_len == 0 writes zeros
+    if (B, S) == (3, 2000):
+        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        assert decode_plan(B, S, H, KV, D, out.element_size(),
+                           n_sm).n_split == 8
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-def test_decode_kernel_window_softcap(cuda, dtype):
-    B, S = 3, 256
-    q, k, v = _randn(cuda, dtype, (B, 1, 4, 32), (B, S, 2, 32), (B, S, 2, 32))
-    kv_len = torch.tensor([200, 256, 9], dtype=torch.int32, device=cuda)
+@pytest.mark.parametrize("S,H,KV,D", [(256, 4, 2, 32), (1024, 14, 2, 64)])
+def test_decode_kernel_window_softcap(cuda, dtype, S, H, KV, D):
+    B = 3
+    q, k, v = _randn(cuda, dtype, (B, 1, H, D), (B, S, KV, D), (B, S, KV, D))
+    kv_len = torch.tensor([200, S, 9], dtype=torch.int32, device=cuda)
     for kw in (dict(window=64), dict(window=64, attn_softcap=20.0),
                dict(window=40, k_positions=torch.arange(
                    S, device=cuda).expand(B, S) + 7,
@@ -93,20 +104,27 @@ def test_decode_kernel_window_softcap(cuda, dtype):
                decode_attention_plain(q, k, v, kv_len, **kw), dtype)
 
 
+# B=2 at every head dim the tensor-core route tiles differently, at G = 1
+# and G = 7, with ragged and whole-tile S
+PREFILL_SHAPES = [(1, 512, 14, 2, 64), (2, 200, 4, 2, 32), (1, 130, 8, 4, 128),
+                  (1, 70, 2, 1, 256), (1, 33, 4, 4, 16)] + [
+    (2, S, H, KV, D) for D in (64, 128, 256) for S in (17, 100, 300, 512)
+    for H, KV in ((2, 2), (7, 1))]
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("kw", range(len(PREFILL_KW)))
-@pytest.mark.parametrize("B,S,H,KV,D", [(1, 512, 14, 2, 64),
-                                        (2, 200, 4, 2, 32),
-                                        (1, 130, 8, 4, 128),
-                                        (1, 70, 2, 1, 256),
-                                        (1, 33, 4, 4, 16)])
+@pytest.mark.parametrize("B,S,H,KV,D", PREFILL_SHAPES)
 def test_prefill_kernel_matches_plain(cuda, dtype, kw, B, S, H, KV, D):
+    """bf16 goes through the tensor-core route, f32 the FP32 pipes."""
     kw = PREFILL_KW[kw]
     q, k, v = _randn(cuda, dtype, (B, S, H, D), (B, S, KV, D), (B, S, KV, D))
-    n = prefill_attention.launches
+    route = "launches_tc" if dtype == "bfloat16" else "launches_fp32"
+    n, n_route = prefill_attention.launches, getattr(prefill_attention, route)
     out = prefill_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert prefill_attention.launches == n + 1
+    assert getattr(prefill_attention, route) == n_route + 1
     _close(out, prefill_attention_plain(q, k, v, **kw), dtype)
 
 
