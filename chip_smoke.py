@@ -26,9 +26,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3b. SSD scan vs plain -- the same for the Mamba-2 chunk scan (B3), bf16
    and f32: the serving engine's chunk (B=1 S=16, mamba2-130m's heads
    H=24 P=64 N=128), the config's chunk (B=4 S=2048), the odd shapes of
-   ``tests/test_kernels.py``, a ragged S with an initial state, and one
-   large shape (B=8 S=8192).  Also prints y's distance from a float64
-   run of the plain version.  The plain version launches too many kernels
+   ``tests/test_kernels.py``, a ragged S with an initial state, S on
+   either side of the bf16 route's 128-token chunk, N=256 beside P=16,
+   and one large shape (B=8 S=8192).  Each call must go through its
+   dtype's route; prints the route (bf16: ``tc``, one chunk from a zero
+   state in one launch or chunks in parallel in three; f32: ``fp32``)
+   and y's distance from a float64 run of the plain version.  The plain version launches too many kernels
    to queue behind a spin, so it is captured in a CUDA graph and the
    graph's replay is timed.  The bound counts the FLOPs of the cheapest
    exact chunking, one token (the recurrence).  No single PyTorch call
@@ -337,6 +340,14 @@ def _ssd_cases(torch, gen, dt):
                       *make(B, S, H, P, N)))
     cases.append(("B=2 S=300 H=24 initial state",
                   *make(2, 300, 24, 64, 128, state=True)))
+    # straddling the bf16 route's 128-token chunk, and N, P at the edges
+    for S in (127, 128, 129):
+        cases.append((f"B=2 S={S} H=24 chunk edge", *make(2, S, 24, 64, 128)))
+    cases.append(("B=2 S=16 H=24 engine chunk, initial state",
+                  *make(2, 16, 24, 64, 128, state=True)))
+    cases.append(("B=2 S=200 H=3 P=16 N=256 initial state",
+                  *make(2, 200, 3, 16, 256, state=True)))
+    cases.append(("B=1 S=300 H=4 P=16 N=256", *make(1, 300, 4, 16, 256)))
     if dt == torch.bfloat16:
         cases.append(("B=8 S=8192 H=24 large", *make(8, 8192, 24, 64, 128)))
     return cases
@@ -372,6 +383,19 @@ def _graphed(torch, fn):
     return graph.replay
 
 
+def _ssd_route(torch, args, h0, n_sm):
+    """The route a call takes and the kernels it launches."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_plan
+
+    x, Bm = args[0], args[1]
+    if x.dtype != torch.bfloat16:
+        return "fp32", "fp32 (1 kernel)"
+    plan = ssd_plan(*x.shape, Bm.shape[-1], h0 is not None, n_sm)
+    return "tc", (f"tc {plan.route} (chunk {plan.chunk}, {plan.kernels} "
+                  f"kernel{'s' if plan.kernels > 1 else ''}, {plan.blocks} "
+                  f"blocks, hb={plan.hb} pb={plan.pb})")
+
+
 def check_ssd(torch):
     from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
     from repro_torch.telemetry.timing import timeit_median_cuda
@@ -379,13 +403,19 @@ def check_ssd(torch):
     def ms(fn):
         return timeit_median_cuda(fn) * 1e3
 
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows, failures = [], []
     for dt in (torch.bfloat16, torch.float32):
         dname = str(dt).split(".")[-1]
         el = torch.finfo(dt).bits // 8
         for desc, args, h0 in _ssd_cases(torch, gen, dt):
+            kind, route = _ssd_route(torch, args, h0, n_sm)
+            n_route = getattr(ssd_scan, f"launches_{kind}")
             y, h = ssd_scan(*args, initial_state=h0)
+            if getattr(ssd_scan, f"launches_{kind}") != n_route + 1:
+                raise AssertionError(f"ssd_scan {dname} {desc}: did not "
+                                     f"launch the {kind} route")
             yp, hp = ssd_scan_plain(*args, initial_state=h0)
             # the same scan in float64: how far each side is from exact
             y64, _ = ssd_scan_plain(*(a.double() for a in args),
@@ -406,15 +436,15 @@ def check_ssd(torch):
             del y64
             bytes_, flops = _ssd_work(args[0], args[1].shape[-1], el,
                                       h0 is not None)
-            row = dict(shape=desc, dtype=dname, max_abs_err=errs[0],
-                       state_err=errs[1], f64_err=f64,
+            row = dict(shape=desc, dtype=dname, route=route,
+                       max_abs_err=errs[0], state_err=errs[1], f64_err=f64,
                        ms=ms(lambda: ssd_scan(*args, initial_state=h0)),
                        plain_ms=ms(_graphed(torch, lambda: ssd_scan_plain(
                            *args, initial_state=h0))),
                        library_ms=None)
             row["bound_ms"], row["bound_by"] = _bound(dname, bytes_, flops)
             rows.append(row)
-            print(f"[kernel] ssd_scan {dname} {desc}: "
+            print(f"[kernel] ssd_scan {dname} {desc} ({route}): "
                   f"max_abs_err={errs[0]!r} state_err={errs[1]!r} "
                   f"(atol, rtol {SSD_Y_TOL[dname]}; state {TOL['float32']}) "
                   f"y vs float64: kernel {f64[0]!r} plain {f64[1]!r} "

@@ -1,4 +1,4 @@
-"""Mamba-2 SSD chunk scan: the CUDA kernel's wrapper and its plain
+"""Mamba-2 SSD chunk scan: the CUDA kernels' wrapper and their plain
 PyTorch version.
 
 Replaces ``repro.kernels.ssd_scan`` (the Pallas TPU kernel
@@ -14,18 +14,107 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from ..build import load
 from .._checks import DTYPE_CODES, check_launch, check_tensors
 
-__all__ = ["ssd_scan", "ssd_scan_plain"]
+__all__ = ["SSDPlan", "ssd_plan", "ssd_scan", "ssd_scan_plain"]
 
-_ARGTYPES = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
+_ARGTYPES = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
     + [ctypes.c_void_p]
-_P_BLOCK = 16  # columns of y per block (csrc/ssd_scan.cu, kPB)
+_P_ALIGN = 16  # head_dim P: a multiple of the kernels' 16-column tiles
 _MAX_N = 256
+# csrc/ssd_scan.cu, the bf16 route: tokens per chunk (kQ), columns of P a
+# block at most (kMaxPB), bf16 padding of a staged row (kPad)
+_CHUNK, _MAX_PB, _PAD = 128, 64, 8
+_SMEM_LIMIT = 232448  # bytes of shared memory a block may use (sm_90)
+
+
+class SSDPlan(NamedTuple):
+    """How the bf16 route runs one call (``ssd_plan``)."""
+
+    route: str  # "one-chunk" (S <= chunk, zero state) or "multi-chunk"
+    chunk: int  # tokens per chunk, Q
+    n_chunks: int
+    hb: int  # heads a block takes (the last group may be short)
+    pb: int  # columns of P a block takes: divides P, a multiple of 16
+    blocks: int  # blocks of each chunk-kernel launch
+    kernels: int  # launches per call: 1, or state + carry + y
+    scratch_bytes: int  # f32 chunk states and decays the wrapper allocates
+    smem: int  # the chunk kernel's largest dynamic shared memory, bytes
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _smem(qr: int, N: int, pb: int, hb: int, state: bool, y: bool,
+          inter: bool) -> int:
+    """Dynamic shared memory of one chunk-kernel launch (csrc/ssd_scan.cu,
+    ``tc::layout``): cum (and seg, state mode) of every head, B and C (y
+    mode) of qr rows, x of a head (two buffers), the carried state as
+    loaded and as three bf16 terms (inter), x o seg as three terms
+    (state)."""
+    ldb = _cdiv(N, 16) * 16 + _PAD
+    return (4 * _CHUNK * hb * (2 if state else 1)
+            + 2 * qr * ldb * (2 if y else 1)
+            + 4 * qr * (pb + _PAD)
+            + (4 * pb * N + 6 * pb * ldb if inter else 0)
+            + (6 * pb * (qr + _PAD) if state else 0))
+
+
+@functools.lru_cache(maxsize=4096)
+def ssd_plan(B: int, S: int, H: int, P: int, N: int, with_state: bool,
+             n_sm: int) -> SSDPlan:
+    """The bf16 route's split of a (B, S, H, P, N) call on a card of
+    ``n_sm`` SMs.
+
+    One chunk from a zero state (S <= Q, the serving engine's call) is one
+    launch that writes the state straight out; anything else is three
+    launches over ``n_chunks`` chunks with f32 scratch.  A block takes
+    ``hb`` heads, which share its C B^T, and ``pb`` columns of P: the
+    widest that fits shared memory, since a narrower slice forms C B^T
+    again.  Blocks run one an SM, so the heads go into as many groups as
+    fill the SMs once, to the nearest whole number (at least one group,
+    at most a group per head).  Where that leaves one head a block and
+    SMs still idle, ``pb`` narrows while the blocks still fit on the SMs:
+    the serving engine's chunk is latency, not work.
+    """
+    n_chunks = _cdiv(S, _CHUNK)
+    one = n_chunks == 1 and not with_state
+    qr = min(_CHUNK, _cdiv(S, 16) * 16)
+
+    def smem(pb, hb):
+        if one:
+            return _smem(qr, N, pb, hb, True, True, False)
+        return max(_smem(qr, N, pb, hb, True, False, False),
+                   _smem(qr, N, pb, hb, False, True, True))
+
+    widths = [d for d in range(_MAX_PB, 0, -16) if P % d == 0]
+    pb = next(d for d in widths if smem(d, 1) <= _SMEM_LIMIT)
+    per_group = B * n_chunks * (P // pb)  # blocks of one head group
+    n_hg = min(H, max(1, int(n_sm / per_group + 0.5)))
+    while smem(pb, _cdiv(H, n_hg)) > _SMEM_LIMIT:
+        n_hg += 1
+    hb = _cdiv(H, n_hg)
+    n_hg = _cdiv(H, hb)
+    if hb == 1:
+        pb = min((d for d in widths if d <= pb
+                  and B * n_chunks * H * (P // d) <= n_sm), default=pb)
+    blocks = B * n_chunks * n_hg * (P // pb)
+    if one:
+        return SSDPlan("one-chunk", _CHUNK, 1, hb, pb, blocks, 1, 0,
+                       smem(pb, hb))
+    return SSDPlan("multi-chunk", _CHUNK, n_chunks, hb, pb, blocks, 3,
+                   4 * B * n_chunks * H * (P * N + 1), smem(pb, hb))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)
@@ -77,8 +166,11 @@ def ssd_scan(x_dt, Bm, Cm, log_a, *, initial_state=None):
     """x_dt (B,S,H,P); Bm/Cm (B,S,N); log_a (B,S,H) f32; optional
     initial_state (B,H,P,N) f32 -> (y (B,S,H,P), final_state (B,H,P,N)).
 
-    CUDA tensors launch the kernel (``csrc/ssd_scan.cu``); CPU tensors run
-    :func:`ssd_scan_plain`.
+    CUDA tensors launch the kernels (``csrc/ssd_scan.cu``): bf16 the
+    tensor-core route as :func:`ssd_plan` splits it, f32 the FP32-pipe
+    kernel (TF32 would not hold f32 to its 3e-5).  CPU tensors run
+    :func:`ssd_scan_plain`.  Calls count in ``ssd_scan.launches`` and, by
+    route, in ``ssd_scan.launches_tc`` and ``launches_fp32``.
     """
     check_tensors("ssd_scan", x_dt, Bm, Cm)
     if x_dt.dim() != 4 or Bm.dim() != 3 or Bm.shape != Cm.shape \
@@ -102,27 +194,45 @@ def ssd_scan(x_dt, Bm, Cm, log_a, *, initial_state=None):
         return ssd_scan_plain(x_dt, Bm, Cm, log_a,
                               initial_state=initial_state)
 
-    if P % _P_BLOCK or N % 8 or not 0 < N <= _MAX_N:
+    if P % _P_ALIGN or N % 8 or not 0 < N <= _MAX_N:
         raise ValueError(f"ssd_scan: head_dim P={P} must be a multiple of "
-                         f"{_P_BLOCK}, and d_state N={N} a multiple of 8 up "
+                         f"{_P_ALIGN}, and d_state N={N} a multiple of 8 up "
                          f"to {_MAX_N}")
     if Bsz == 0 or S == 0 or H == 0:
         raise ValueError(f"ssd_scan: empty input (B={Bsz}, S={S}, H={H}) "
                          f"has nothing to launch")
+    dev = x_dt.device
     y = torch.empty_like(x_dt)
-    h_out = torch.empty((Bsz, H, P, N), dtype=torch.float32,
-                        device=x_dt.device)
-    index = x_dt.device.index if x_dt.device.index is not None \
-        else torch.cuda.current_device()
+    h_out = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=dev)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    st = dec = None
+    hb = pb = 0
+    tc = x_dt.dtype == torch.bfloat16
+    if tc:
+        plan = ssd_plan(Bsz, S, H, P, N, initial_state is not None,
+                        _sm_count(index))
+        hb, pb = plan.hb, plan.pb
+        if plan.route == "multi-chunk":
+            rows = Bsz * plan.n_chunks * H
+            st = torch.empty(rows * P * N, dtype=torch.float32, device=dev)
+            dec = torch.empty(rows, dtype=torch.float32, device=dev)
     err = _launcher()(
         index, DTYPE_CODES[x_dt.dtype], x_dt.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), log_a.data_ptr(),
         None if initial_state is None else initial_state.data_ptr(),
-        y.data_ptr(), h_out.data_ptr(), Bsz, S, H, P, N,
-        torch.cuda.current_stream(x_dt.device).cuda_stream)
+        y.data_ptr(), h_out.data_ptr(),
+        None if st is None else st.data_ptr(),
+        None if dec is None else dec.data_ptr(), Bsz, S, H, P, N, hb, pb,
+        torch.cuda.current_stream(dev).cuda_stream)
     check_launch("ssd_scan", err)
     ssd_scan.launches += 1
+    if tc:
+        ssd_scan.launches_tc += 1
+    else:
+        ssd_scan.launches_fp32 += 1
     return y, h_out
 
 
 ssd_scan.launches = 0
+ssd_scan.launches_tc = 0  # bf16: mma.sync tensor-core kernels
+ssd_scan.launches_fp32 = 0  # f32: FP32-pipe kernel

@@ -197,18 +197,30 @@ def _scan_inputs(device, dtype, B, S, H, P, N, seed=3):
                                        (2, 256, 3, 16, 32),
                                        (1, 512, 4, 32, 64),
                                        (2, 100, 3, 16, 32),
-                                       (1, 33, 2, 64, 256)])
+                                       (1, 33, 2, 64, 256),
+                                       (2, 127, 4, 64, 128),
+                                       (2, 128, 4, 64, 128),
+                                       (2, 129, 4, 64, 128),
+                                       (4, 16, 24, 64, 128),
+                                       (1, 300, 3, 16, 256),
+                                       (2, 200, 2, 128, 64)])
 @pytest.mark.parametrize("with_state", [False, True])
 def test_ssd_scan_kernel_matches_plain(cuda, dtype, B, S, H, P, N,
                                        with_state):
+    """bf16 runs the tensor-core route: S = 127, 128, 129 straddle its
+    128-token chunk, S = 300 ends on a ragged chunk, P = 128 splits P
+    across blocks, and B = 4 S = 16 shares blocks among heads."""
     x, Bm, Cm, la = _scan_inputs(cuda, dtype, B, S, H, P, N)
     h0 = None
     if with_state:
         h0 = _randn(cuda, "float32", (B, H, P, N), seed=9)[0]
     n = ssd_scan.launches
+    route = "launches_tc" if dtype == "bfloat16" else "launches_fp32"
+    n_route = getattr(ssd_scan, route)
     y, h = ssd_scan(x, Bm, Cm, la, initial_state=h0)
     torch.cuda.synchronize()
     assert ssd_scan.launches == n + 1
+    assert getattr(ssd_scan, route) == n_route + 1
     yp, hp = ssd_scan_plain(x, Bm, Cm, la, initial_state=h0)
     assert y.dtype == x.dtype and h.dtype == torch.float32
     atol, rtol = SSD_Y_TOL[dtype]
