@@ -11,7 +11,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (one ``nvcc`` per source, all at once) and prints ``ptxas``'s resource
    report, one line per kernel instantiation;
 3. kernels vs plain -- calls each kernel's wrapper on the card at the
-   shapes the calibration loop gives it (bf16 and f32), at odd and masked
+   shapes the calibration loop gives it (bf16 and f32), at the shapes of
+   phase 6 (the engine's decode, B=4 S=256; the whole-prompt prefill,
+   B=4 S=2048), at odd and masked
    shapes, and at one large shape per kernel and dtype, and holds each
    result to the kernel's plain PyTorch version on the same inputs
    (``TOL``).  Each bf16 prefill call must go through the tensor-core
@@ -57,6 +59,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    Then a whole-prompt ``forward_prefill`` at B=4 S=2048 must give finite
    logits, and reduced mamba2's logits on the card must match the CPU's
    (plain versions) on the same weights within 1e-4.
+6. attention serving path -- qwen2-0.5b at its published width and depth
+   (random f32 weights; f32 caches, so B1 runs its f32 route) through the
+   same ``serve`` run, the same profiler window and the same prints:
+   every request must complete and B1 must launch once per attention
+   layer per engine iteration (every iteration decodes); its launches
+   print by dtype and cluster plan.  Then whole-prompt
+   ``forward_prefill(kernel_impl="pallas")`` with bf16 caches and decodes
+   on them: qwen2-0.5b at B=4 S=2048 (16 decodes) and gemma2-2b at B=1
+   S=4608 (4 decodes, past its 4096 window, so the local rings wrap):
+   B2 once per attention layer on its tensor-core route, B1 once per
+   layer per decode on its bf16 route, finite logits.  Reduced qwen2,
+   gemma2 and recurrentgemma on the card must match the CPU within 1e-4
+   over a whole prefill, two continuation chunks and 8 decodes.
 
 It then prints the per-kernel JSON line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -155,11 +170,11 @@ def _check(torch, name, out, ref, dtype_name, shape_desc, tol=None):
 
 
 def _decode_cases(torch, gen, dt):
-    """(description, args, kwargs, kv tokens read) of every decode check."""
-    H, KV, D = 14, 2, 64
+    """(description, args, kwargs, kv tokens read) of every decode check;
+    qwen2-0.5b's head layout unless a case says otherwise."""
     cases = []
 
-    def make(B, S, kv_len, **kw):
+    def make(B, S, kv_len, H=14, KV=2, D=64, **kw):
         q = torch.randn(B, 1, H, D, generator=gen, device="cuda", dtype=dt)
         k = torch.randn(B, S, KV, D, generator=gen, device="cuda", dtype=dt)
         v = torch.randn(B, S, KV, D, generator=gen, device="cuda", dtype=dt)
@@ -172,6 +187,9 @@ def _decode_cases(torch, gen, dt):
             S = math.ceil(K / B)
             args, kw = make(B, S, [S] * B)
             cases.append((f"B={B} S={S} main", args, kw, B * S))
+    # the serving engine's decode: batch cap 4, max_len 256 (phase 6)
+    args, kw = make(4, 256, [256] * 4)
+    cases.append(("B=4 S=256 engine decode", args, kw, 4 * 256))
     # ragged fills at odd cache lengths, one empty row, ring window, softcap
     for S in (33, 108, 300):
         kl = [S, max(1, S - 1), max(1, S // 2), max(1, S // 3)]
@@ -186,17 +204,38 @@ def _decode_cases(torch, gen, dt):
     cases.append(("B=2 S=256 window=64 softcap", args, kw, 456))
     args, kw = make(64, 4096, [4096] * 64)
     cases.append(("B=64 S=4096 large", args, kw, 64 * 4096))
-    return H, KV, D, cases
+    # phase 6's decodes after its whole-prompt prefills, at their last
+    # step: qwen2-0.5b at B=4 over 2048 + 16 slots; gemma2-2b's global
+    # layers over 4608 + 4 slots and its local layers over the wrapped
+    # 4096-slot ring (slot s holds the position of s's residue in
+    # 516..4611), both with softcap 50
+    args, kw = make(4, 2064, [2064] * 4)
+    cases.append(("B=4 S=2064 qwen2 whole-prompt decode", args, kw,
+                  4 * 2064))
+    gemma = dict(H=8, KV=4, D=256, attn_softcap=50.0)
+    args, kw = make(1, 4612, [4612], **gemma)
+    cases.append(("B=1 S=4612 D=256 gemma2 global softcap=50", args, kw,
+                  4612))
+    args, kw = make(1, 4096, [4096], window=4096, **gemma)
+    slot = torch.arange(4096, dtype=torch.int32, device="cuda")
+    kw["k_positions"] = torch.where(slot < 4612 - 4096, slot + 4096,
+                                    slot)[None].contiguous()
+    kw["q_positions"] = torch.tensor([4611], dtype=torch.int32,
+                                     device="cuda")
+    cases.append(("B=1 S=4096 D=256 gemma2 ring window=4096 softcap=50",
+                  args, kw, 4096))
+    return cases
 
 
 def _prefill_cases(torch, gen, dt):
-    H, KV, D = 14, 2, 64
+    """(description, args, kwargs) of every prefill check; qwen2-0.5b's
+    head layout unless a case says otherwise."""
     cases = []
 
-    def make(S, **kw):
-        q = torch.randn(1, S, H, D, generator=gen, device="cuda", dtype=dt)
-        k = torch.randn(1, S, KV, D, generator=gen, device="cuda", dtype=dt)
-        v = torch.randn(1, S, KV, D, generator=gen, device="cuda", dtype=dt)
+    def make(S, B=1, H=14, KV=2, D=64, **kw):
+        q = torch.randn(B, S, H, D, generator=gen, device="cuda", dtype=dt)
+        k = torch.randn(B, S, KV, D, generator=gen, device="cuda", dtype=dt)
+        v = torch.randn(B, S, KV, D, generator=gen, device="cuda", dtype=dt)
         return (q, k, v), kw
 
     for C in (32, 64, 128, 256, 512):  # the calibration grid's chunks
@@ -207,7 +246,15 @@ def _prefill_cases(torch, gen, dt):
     cases.append(("C=200 prefix=64", *make(200, prefix_len=64)))
     cases.append(("C=200 softcap=50", *make(200, attn_softcap=50.0)))
     cases.append(("C=4096 causal large", *make(4096)))
-    return H, KV, D, cases
+    # phase 6's whole-prompt prefill of qwen2-0.5b
+    cases.append(("B=4 S=2048 causal whole-prompt", *make(2048, B=4)))
+    # and gemma2-2b's, past the window: its local and its global layers
+    gemma = dict(H=8, KV=4, D=256, attn_softcap=50.0)
+    cases.append(("B=1 S=4608 D=256 gemma2 window=4096 softcap=50",
+                  *make(4608, window=4096, **gemma)))
+    cases.append(("B=1 S=4608 D=256 gemma2 global softcap=50",
+                  *make(4608, **gemma)))
+    return cases
 
 
 def _pairs(torch, S, causal=True, window=None, prefix_len=None) -> int:
@@ -251,8 +298,9 @@ def check_kernels(torch):
         dname = str(dt).split(".")[-1]
         el = torch.finfo(dt).bits // 8
 
-        H, KV, D, cases = _decode_cases(torch, gen, dt)
-        for desc, (q, k, v, kl), kw, kv_read in cases:
+        for desc, (q, k, v, kl), kw, kv_read in _decode_cases(torch, gen,
+                                                              dt):
+            H, D, KV = q.shape[2], q.shape[3], k.shape[2]
             out = decode_attention(q, k, v, kl, **kw)
             ref = decode_attention_plain(q, k, v, kl, **kw)
             torch.cuda.synchronize()
@@ -277,9 +325,9 @@ def check_kernels(torch):
             row["bound_ms"], row["bound_by"] = _bound(dname, bytes_, flops)
             rows["decode_attention"].append(row)
 
-        H, KV, D, cases = _prefill_cases(torch, gen, dt)
         route = "tc" if dt == torch.bfloat16 else "fp32"
-        for desc, (q, k, v), kw in cases:
+        for desc, (q, k, v), kw in _prefill_cases(torch, gen, dt):
+            H, D, KV = q.shape[2], q.shape[3], k.shape[2]
             n_route = getattr(prefill_attention, f"launches_{route}")
             out = prefill_attention(q, k, v, **kw)
             if getattr(prefill_attention, f"launches_{route}") != n_route + 1:
@@ -288,10 +336,10 @@ def check_kernels(torch):
             ref = prefill_attention_plain(q, k, v, **kw)
             torch.cuda.synchronize()
             err = _check(torch, "prefill_attention", out, ref, dname, desc)
-            S = q.shape[1]
-            pairs = _pairs(torch, S, kw.get("causal", True), kw.get("window"),
-                           kw.get("prefix_len"))
-            bytes_ = (2 * S * H * D + 2 * S * KV * D) * el
+            B, S = q.shape[:2]
+            pairs = B * _pairs(torch, S, kw.get("causal", True),
+                               kw.get("window"), kw.get("prefix_len"))
+            bytes_ = B * (2 * S * H * D + 2 * S * KV * D) * el
             flops = 4.0 * pairs * H * D
             lib = None
             if set(kw) <= {"causal"}:
@@ -470,8 +518,40 @@ def _busy_us(kernels, ranges):
     return busy
 
 
-def run_serving(torch):
-    """The serving path at full width: mamba2-130m through ``serve``.
+def _zero_counts():
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.prefill_attention.ops import prefill_attention
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
+    decode_attention.launches = prefill_attention.launches = 0
+    prefill_attention.launches_tc = prefill_attention.launches_fp32 = 0
+    ssd_scan.launches = 0
+    decode_attention.routes.clear()
+
+
+def _counts():
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.prefill_attention.ops import prefill_attention
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
+    return {"decode_attention": decode_attention.launches,
+            "prefill_attention": prefill_attention.launches,
+            "ssd_scan": ssd_scan.launches}
+
+
+def _b1_routes():
+    """B1's launches since the counts were zeroed, by dtype and plan."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+
+    return "; ".join(
+        f"{n} x {dt} cluster={p.n_split} split_len={p.split_len} kw={p.kw} "
+        f"gc={p.gc} blocks={p.blocks}"
+        for (dt, p), n in sorted(decode_attention.routes.items(),
+                                 key=lambda kv: -kv[1]))
+
+
+def run_serving(torch, arch):
+    """The serving path at full width: ``arch`` through ``serve``.
 
     ``torch.profiler`` records iterations ``PROFILE_FROM`` to
     ``PROFILE_FROM + PROFILE_N - 1`` of this same run (the first are
@@ -481,18 +561,16 @@ def run_serving(torch):
     ranges' host wall, is the card's busy share there.  The run's host
     wall per iteration (``iter_wall``) is printed for the iterations
     outside the window, which neither the profiler nor its start and
-    stop slow.  Returns the run's ``ssd_scan`` launches."""
+    stop slow.  Returns the metrics and the run's kernel launches (the
+    counts are zeroed just before)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.decode_attention.ops import decode_attention
-    from repro_torch.kernels.prefill_attention.ops import prefill_attention
-    from repro_torch.kernels.ssd_scan.ops import ssd_scan
     from repro_torch.launch.serve import serve
     from repro_torch.serving.engine import ServerEngine
 
-    cfg = get_config(SSD_ARCH)
+    cfg = get_config(arch)
     n_req = 24
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     window = {"modes": [], "wall": 0.0}
@@ -513,8 +591,7 @@ def run_serving(torch):
             prof.stop()
         return res
 
-    decode_attention.launches = prefill_attention.launches = 0
-    ssd_scan.launches = 0
+    _zero_counts()
     ServerEngine.step = step
     try:
         t0 = time.perf_counter()
@@ -524,13 +601,15 @@ def run_serving(torch):
         wall = time.perf_counter() - t0
     finally:
         ServerEngine.step = engine_step
-    launches = {"decode_attention": decode_attention.launches,
-                "prefill_attention": prefill_attention.launches,
-                "ssd_scan": ssd_scan.launches}
-    n_mix = len(m.iter_wall["mixed"])
-    print(f"[serve] {SSD_ARCH} (layers={cfg.n_layers} d_model={cfg.d_model} "
-          f"vocab={cfg.vocab_size} N={cfg.ssm.d_state} P={cfg.ssm.head_dim}"
-          f") served in {wall:.1f} s; launches {launches}")
+    launches = _counts()
+    mixer = (f"H={cfg.attn.n_heads} KV={cfg.attn.n_kv_heads} "
+             f"D={cfg.attn.head_dim}" if cfg.attn is not None else
+             f"N={cfg.ssm.d_state} P={cfg.ssm.head_dim}")
+    print(f"[serve] {arch} (layers={cfg.n_layers} d_model={cfg.d_model} "
+          f"vocab={cfg.vocab_size} {mixer}) served in {wall:.1f} s; "
+          f"launches {launches}")
+    if launches["decode_attention"]:
+        print(f"[serve] {arch} decode_attention routes: {_b1_routes()}")
     print(f"[serve] summary {json.dumps(m.summary(), sort_keys=True)}")
     modes = window["modes"]
     for mode, ts in m.iter_wall.items():
@@ -546,12 +625,9 @@ def run_serving(torch):
               f"{1e3 * srt[len(srt) // 2] if ts else float('nan')!r} "
               f"first {1e3 * ts[0] if ts else float('nan')!r}")
     if not (m.completions == m.arrivals == n_req):
-        raise AssertionError(f"serving: {m.completions} of {m.arrivals} "
-                             f"requests completed, expected {n_req}")
-    if n_mix == 0 or ssd_scan.launches < cfg.n_layers * n_mix:
-        raise AssertionError(f"serving: ssd_scan launched "
-                             f"{ssd_scan.launches} times for {n_mix} prefill "
-                             f"chunks x {cfg.n_layers} SSM layers")
+        raise AssertionError(f"serving {arch}: {m.completions} of "
+                             f"{m.arrivals} requests completed, expected "
+                             f"{n_req}")
 
     # the ranges appear twice: on the host, and on the device as the span
     # of their kernels
@@ -569,8 +645,8 @@ def run_serving(torch):
                         for e in events if e.name == f"iteration.{mode}"
                         and e.device_type == DeviceType.CPU)
         if not ranges:
-            raise AssertionError(f"serving: no {mode} iteration in the "
-                                 f"profiled window")
+            raise AssertionError(f"serving {arch}: no {mode} iteration in "
+                                 f"the profiled window")
         busy = _busy_us(kernels, ranges)
         span = sum(r1 - r0 for r0, r1 in ranges)
         print(f"[serve] profiled {mode} iterations: {len(ranges)}, host wall "
@@ -583,7 +659,7 @@ def run_serving(torch):
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
     print("[serve] profiled window's top device time (ms per iteration): "
           + ", ".join(f"{k[:48]} {v / 1e3 / PROFILE_N:.4f}" for k, v in top))
-    return ssd_scan.launches
+    return m, launches
 
 
 def check_model_outputs(torch):
@@ -636,6 +712,146 @@ def check_model_outputs(torch):
                                  f"err {err} beyond 1e-4")
     print(f"[serve] reduced {SSD_ARCH} on the card matches the CPU: logits "
           f"max abs err {errs[0]!r}, state {errs[1]!r}")
+
+
+def _n_attn(cfg) -> int:
+    return sum(s.mixer in ("attn", "attn_local") for s in cfg.block_specs())
+
+
+def _whole_prompt(torch, arch, B, S, steps):
+    """``arch`` at its published width and depth (random f32 weights,
+    seed 0): a whole-prompt ``forward_prefill(kernel_impl="pallas")`` with
+    bf16 caches, then ``steps`` decodes on them.  Every attention layer
+    must run B2 on its tensor-core route and B1 on its bf16 route, and
+    the logits must be finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.prefill_attention.ops import prefill_attention
+    from repro_torch.models import model as M
+    from repro_torch.models.config import segment_layers
+
+    cfg = get_config(arch)
+    n_attn = _n_attn(cfg)
+    params = M.init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    pos = torch.arange(S, dtype=torch.int32, device="cuda")[None].expand(B, S)
+    caches = M.init_cache(cfg, B, S + steps, torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = M.forward_prefill(cfg, params, toks, pos, caches,
+                                       kernel_impl="pallas")
+    torch.cuda.synchronize()
+    t_pf = time.perf_counter() - t0
+    if prefill_attention.launches_tc != n_attn \
+            or prefill_attention.launches != n_attn:
+        raise AssertionError(f"{arch} prefill: B2 launched "
+                             f"{prefill_attention.launches} times, "
+                             f"{prefill_attention.launches_tc} on the "
+                             f"tensor-core route; expected {n_attn}")
+    t0 = time.perf_counter()
+    for i in range(steps):
+        nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        logits, caches = M.forward_decode(
+            cfg, params, nxt,
+            torch.full((B,), S + i, dtype=torch.int32, device="cuda"),
+            caches)
+    torch.cuda.synchronize()
+    t_dec = (time.perf_counter() - t0) / steps
+    bf16 = sum(n for (dt, _), n in decode_attention.routes.items()
+               if dt == "bfloat16")
+    if decode_attention.launches != steps * n_attn or bf16 != steps * n_attn:
+        raise AssertionError(f"{arch} decode: B1 launched "
+                             f"{decode_attention.launches} times ({bf16} "
+                             f"bf16); expected {steps} x {n_attn}")
+    if logits.shape != (B, 1, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"{arch} B={B} S={S}: bad logits "
+                             f"{tuple(logits.shape)} or non-finite values")
+    ring = ""
+    local = [seg[f"b{i}"]["pos"] for seg, (block, _) in
+             zip(caches, segment_layers(cfg.block_specs()))
+             for i, spec in enumerate(block) if spec.mixer == "attn_local"]
+    if local:
+        lo, hi = int(local[0].min()), int(local[0].max())
+        if not (hi == S + steps - 1 and lo == S + steps - local[0].shape[-1]):
+            raise AssertionError(f"{arch}: the local ring holds positions "
+                                 f"{lo}..{hi}, expected the last "
+                                 f"{local[0].shape[-1]} of {S + steps}")
+        ring = (f"; local ring of {local[0].shape[-1]} wrapped, holds "
+                f"positions {lo}..{hi}")
+    print(f"[attn] {arch} (layers={cfg.n_layers}, {n_attn} attention, "
+          f"d_model={cfg.d_model} H={cfg.attn.n_heads} "
+          f"KV={cfg.attn.n_kv_heads} D={cfg.attn.head_dim} vocab="
+          f"{cfg.vocab_size}) forward_prefill(kernel_impl='pallas') B={B} "
+          f"S={S}, bf16 caches: {1e3 * t_pf!r} ms host wall (first call), "
+          f"B2 {prefill_attention.launches_tc} launches on the tensor-core "
+          f"route; {steps} decodes {1e3 * t_dec!r} ms each (host wall), "
+          f"B1 routes: {_b1_routes()}; logits finite{ring}")
+    return _counts()
+
+
+def check_attention_outputs(torch):
+    """Whole-prompt prefill and decode at full width (qwen2-0.5b, gemma2-2b
+    past its window); reduced attention models on the card against the
+    CPU's plain versions on the same weights.  Returns the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_map
+
+    total = {}
+    for arch, B, S, steps in (("qwen2-0.5b", 4, 2048, 16),
+                              ("gemma2-2b", 1, 4608, 4)):
+        _zero_counts()
+        for k, n in _whole_prompt(torch, arch, B, S, steps).items():
+            total[k] = total.get(k, 0) + n
+        torch.cuda.empty_cache()
+
+    # reduced configs (window 32): a whole prefill (B2), two continuation
+    # chunks, 8 decodes (B1), the rings wrapped
+    for arch in ("qwen2-0.5b", "gemma2-2b", "recurrentgemma-2b"):
+        small = get_config(arch, reduced=True)
+        p_cpu = M.init_model(small, torch.Generator().manual_seed(0),
+                             device="cpu")
+        rng = torch.Generator().manual_seed(3)
+        calls = [(torch.randint(0, small.vocab_size, (2, 40), generator=rng,
+                                dtype=torch.int32), 0, False)]
+        calls += [(torch.randint(0, small.vocab_size, (2, 16), generator=rng,
+                                 dtype=torch.int32), p0, True)
+                  for p0 in (40, 56)]
+        calls += [(torch.randint(0, small.vocab_size, (2, 1), generator=rng,
+                                 dtype=torch.int32), 72 + i, None)
+                  for i in range(8)]
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda a: a.to(dev), p_cpu)
+            caches = M.init_cache(small, 2, 96, torch.float32, dev)
+            outs[dev] = []
+            for toks, p0, cont in calls:
+                t = toks.to(dev)
+                if cont is None:
+                    lg, caches = M.forward_decode(
+                        small, p, t, torch.full((2,), p0, dtype=torch.int32,
+                                                device=dev), caches)
+                else:
+                    pos = (p0 + torch.arange(t.shape[1], dtype=torch.int32,
+                                             device=dev))[None].expand(2, -1)
+                    lg, caches = M.forward_prefill(
+                        small, p, t, pos, caches, kernel_impl="pallas",
+                        continuation=cont)
+                outs[dev].append(lg.cpu())
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(outs["cpu"], outs["cuda"]))
+        for a, b in zip(outs["cpu"], outs["cuda"]):
+            if not bool(((a - b).abs() <= 1e-4 + 1e-4 * a.abs()).all()):
+                raise AssertionError(f"reduced {arch}: card vs CPU max abs "
+                                     f"err {err} beyond 1e-4")
+        print(f"[attn] reduced {arch} on the card matches the CPU over a "
+              f"whole prefill, 2 continuation chunks and 8 decodes: logits "
+              f"max abs err {err!r}")
+    return total
 
 
 def run_loop(backend: str):
@@ -720,13 +936,12 @@ def main() -> int:
     print(f"[kernels] ssd_scan checked in {time.perf_counter() - t0:.1f} s")
 
     # 4. main path
+    from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.prefill_attention.ops import prefill_attention
 
     t0 = time.perf_counter()
-    decode_attention.launches = 0
-    prefill_attention.launches = 0
-    prefill_attention.launches_tc = prefill_attention.launches_fp32 = 0
+    _zero_counts()
     art, revenue = run_loop("kernels")
     launches = {"decode_attention": decode_attention.launches,
                 "prefill_attention": prefill_attention.launches}
@@ -765,9 +980,37 @@ def main() -> int:
 
     # 5. serving path
     t0 = time.perf_counter()
-    launches["ssd_scan"] = run_serving(torch)
+    ssm_cfg = get_config(SSD_ARCH)
+    m, served = run_serving(torch, SSD_ARCH)
+    n_mix = len(m.iter_wall["mixed"])
+    if n_mix == 0 or served["ssd_scan"] < ssm_cfg.n_layers * n_mix:
+        raise AssertionError(f"serving: ssd_scan launched "
+                             f"{served['ssd_scan']} times for {n_mix} prefill "
+                             f"chunks x {ssm_cfg.n_layers} SSM layers")
+    launches["ssd_scan"] = served["ssd_scan"]
     check_model_outputs(torch)
     print(f"[serve] phase 5 in {time.perf_counter() - t0:.1f} s")
+
+    # 6. attention serving path
+    t0 = time.perf_counter()
+    attn_cfg = get_config(ARCH)
+    m, served = run_serving(torch, ARCH)
+    iters = len(m.iter_wall["mixed"]) + len(m.iter_wall["solo"])
+    if served["decode_attention"] != _n_attn(attn_cfg) * iters:
+        raise AssertionError(f"serving {ARCH}: decode_attention launched "
+                             f"{served['decode_attention']} times for "
+                             f"{iters} iterations x {_n_attn(attn_cfg)} "
+                             f"attention layers")
+    print(f"[attn] {ARCH} serving: {iters} iterations x "
+          f"{_n_attn(attn_cfg)} attention layers = "
+          f"{served['decode_attention']} B1 launches")
+    more = check_attention_outputs(torch)
+    for k in ("decode_attention", "prefill_attention"):
+        n = served[k] + more[k]
+        if n <= 0:
+            raise AssertionError(f"phase 6 never launched {k}")
+        launches[k] += n
+    print(f"[attn] phase 6 in {time.perf_counter() - t0:.1f} s")
 
     # the main path's largest shape per kernel stands for it in the line
     main_shape = {"decode_attention": "B=16 S=512 main",

@@ -17,6 +17,7 @@ Semantics, in the kernel and the plain version alike: slot ``s`` of row
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -157,7 +158,9 @@ def decode_attention(q, k_cache, v_cache, kv_len, *,
     """q (B,1,H,D); caches (B,S,KV,D); kv_len (B,) -> (B,1,H,D).
 
     CUDA tensors launch the kernel (``csrc/decode_attention.cu``); CPU
-    tensors run :func:`decode_attention_plain`.
+    tensors run :func:`decode_attention_plain`.  Launches count in
+    ``decode_attention.launches`` and, by route (dtype, ``decode_plan``),
+    in the counter ``decode_attention.routes``.
     """
     check_tensors("decode_attention", q, k_cache, v_cache)
     if q.dim() != 4 or q.shape[1] != 1 or k_cache.dim() != 4 \
@@ -214,7 +217,9 @@ def decode_attention(q, k_cache, v_cache, kv_len, *,
         torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("decode_attention", err)
     decode_attention.launches += 1
+    decode_attention.routes[(str(q.dtype).split(".")[-1], plan)] += 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.routes = collections.Counter()  # (dtype, DecodePlan) -> n

@@ -6,8 +6,10 @@ synthesized two-class trace through
 compute + real state migration), and prints the revenue/latency summary.
 Weights are random, drawn from ``--seed``.
 
-Usage (the data plane serves the ``ssm`` mixer so far; the default arch,
-an attention model, raises until ROADMAP A10):
+Usage (the default arch is qwen2-0.5b; as in the reference, ``main``
+serves the reduced config, while ``serve(get_config(arch))`` takes any
+config, full width included):
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
         --device cpu
 """

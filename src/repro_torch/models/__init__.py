@@ -1,7 +1,8 @@
 """Model substrate: configs, params, mixers, and the unified LM.
 
-The forwards serve the ``ssm`` mixer (mamba2) so far; the other mixers'
-forwards are ROADMAP A10, training ROADMAP A12.
+The forwards serve the ``attn``/``attn_local``, ``rec`` and ``ssm``
+mixers; MLA, MoE, cross-attention with the encoder and prefix-LM are
+ROADMAP A10, training ROADMAP A12.
 """
 
 from .config import ModelConfig  # noqa: F401

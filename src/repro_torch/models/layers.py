@@ -1,14 +1,17 @@
-"""Common layers: norms, MLPs, softcap.  Rotary embeddings come with the
-attention forwards (ROADMAP A10)."""
+"""Common layers: norms, MLPs, rotary embeddings, softcap."""
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .params import PDef
 
-__all__ = ["rmsnorm", "layernorm", "mlp_defs", "apply_mlp", "softcap"]
+__all__ = ["rmsnorm", "layernorm", "mlp_defs", "apply_mlp", "rope_table",
+           "apply_rope", "softcap"]
 
 
 def rmsnorm(x, scale, eps=1e-6):
@@ -57,3 +60,35 @@ def apply_mlp(p: dict, x, act: str):
         return (a * u) @ p["w_down"]
     h = F.gelu(x @ p["w_up"] + p["b_up"], approximate="tanh")
     return h @ p["w_down"] + p["b_down"]
+
+
+# ---------------------------------------------------------------- RoPE
+
+
+@functools.lru_cache(maxsize=64)
+def _rope_freqs(dim: int, theta: float, device: torch.device):
+    """The reference's numpy f32 frequency table, on ``device`` once (a
+    host-to-device copy in every layer would wait on the card)."""
+    freqs = 1.0 / (
+        theta ** (np.arange(0, dim, 2, dtype=np.float32) / dim)
+    )
+    return torch.from_numpy(freqs.astype(np.float32)).to(device)
+
+
+def rope_table(positions, dim: int, theta: float):
+    """positions (...,) -> (sin, cos) of shape (..., dim//2), f32."""
+    ang = positions[..., None].float() * _rope_freqs(dim, theta,
+                                                     positions.device)
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rope(x, sin, cos):
+    """x (..., S, H, D); sin/cos (..., S, D/2) broadcast over heads.
+    Rotates in f32 and casts back to x's dtype."""
+    d2 = x.shape[-1] // 2
+    xf1 = x[..., :d2].float()
+    xf2 = x[..., d2:].float()
+    s = sin[..., None, :]
+    c = cos[..., None, :]
+    return torch.cat([xf1 * c - xf2 * s, xf2 * c + xf1 * s], dim=-1).to(
+        x.dtype)

@@ -14,9 +14,13 @@ Entry points of the serving path:
   returns the last-position logits.
 * :func:`forward_decode` -- one-token decode step over the caches.
 
-Only the ``ssm`` mixer (mamba2) runs so far; the ``attn``, ``mla`` and
-``rec`` mixers, cross-attention, MoE channels and the encoder raise
-``NotImplementedError`` (ROADMAP A10), and training is ROADMAP A12.
+The ``attn``/``attn_local``, ``rec`` and ``ssm`` mixers run.  The loop
+over layers is the reference's ``unroll=True`` form, whose semantics the
+port keeps where its scanned form refuses a residual stream that changes
+dtype (bf16 activations against f32 caches, ROADMAP C-ref5).  The
+``mla`` mixer, MoE channels, cross-attention, the encoder, prefix
+embeddings and learned positions raise ``NotImplementedError`` (ROADMAP
+A10), and training is ROADMAP A12.
 """
 
 from __future__ import annotations
@@ -25,13 +29,14 @@ import numpy as np
 import torch
 
 from ..compat import resolve_device
-from .attention import attn_defs
+from .attention import attention_decode, attention_prefill, attn_defs, \
+    init_kv_cache
 from .config import BlockSpec, ModelConfig, segment_layers
 from .layers import apply_mlp, layernorm, mlp_defs, rmsnorm, softcap
 from .mla import mla_defs
 from .moe import moe_defs
 from .params import PDef, _walk, init_params, tree_map
-from .rglru import rglru_defs
+from .rglru import init_rglru_cache, rglru_decode, rglru_defs, rglru_forward
 from .ssm import init_ssm_cache, ssm_decode, ssm_defs, ssm_forward
 
 __all__ = ["model_defs", "param_count", "active_param_count", "init_cache",
@@ -40,8 +45,9 @@ __all__ = ["model_defs", "param_count", "active_param_count", "init_cache",
 
 def _not_ported(what: str):
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP A10); the port "
-        f"serves the ssm mixer (mamba2-130m) so far")
+        f"{what} is not ported to repro_torch yet (ROADMAP A10: MLA, MoE, "
+        f"cross-attention with the encoder, prefix-LM); the port serves the "
+        f"attn, rec and ssm mixers")
 
 
 # ------------------------------------------------------------------ norms
@@ -146,11 +152,18 @@ def model_defs(cfg: ModelConfig) -> dict:
 
 def _block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int, max_len: int,
                  dtype, device):
-    if spec.mixer != "ssm":
-        raise _not_ported(f"the {spec.mixer!r} mixer's cache")
     if spec.cross_attn:
         raise _not_ported("cross-attention")
-    return init_ssm_cache(cfg.ssm, cfg.d_model, batch, dtype, device)
+    if spec.mixer in ("attn", "attn_local"):
+        ring = cfg.attn.window if spec.mixer == "attn_local" else None
+        return init_kv_cache(batch, max_len, cfg.attn.n_kv_heads,
+                             cfg.attn.head_dim, dtype, ring_window=ring,
+                             quant=cfg.kv_quant, device=device)
+    if spec.mixer == "ssm":
+        return init_ssm_cache(cfg.ssm, cfg.d_model, batch, dtype, device)
+    if spec.mixer == "rec":
+        return init_rglru_cache(cfg.rglru, cfg.d_model, batch, dtype, device)
+    raise _not_ported(f"the {spec.mixer!r} mixer's cache")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -171,23 +184,41 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # ------------------------------------------------------------- block apply
 
 
-def _apply_block(cfg: ModelConfig, spec: BlockSpec, p, x, *, mode, cache):
+def _apply_block(cfg: ModelConfig, spec: BlockSpec, p, x, *, positions,
+                 mode, cache, kernel_impl="xla", continuation=False):
     """One layer. mode: "prefill" | "decode"."""
     h = _apply_norm(cfg, p["ln1"], x)
     new_cache = dict(cache) if cache is not None else None
-    if spec.mixer != "ssm":
-        raise _not_ported(f"the {spec.mixer!r} mixer")
-    # the SSM starts every prefill from a zero state, as the reference's
-    # does whatever its ``continuation`` (C-ref4)
-    sub = ({k: cache[k] for k in ("conv", "ssm")}
-           if cache is not None else None)
-    if mode == "decode":
-        out, nc = ssm_decode(cfg.ssm, p["ssm"], h, sub)
-        new_cache.update(nc)
+    if spec.mixer in ("attn", "attn_local"):
+        local = spec.mixer == "attn_local"
+        kv_keys = ("k", "v", "pos") + (
+            ("k_s", "v_s") if cache is not None and "k_s" in cache else ())
+        sub = ({k: cache[k] for k in kv_keys}
+               if cache is not None else None)
+        if mode == "decode":
+            out, nc = attention_decode(cfg.attn, p["attn"], h, positions, sub,
+                                       local=local)
+        else:
+            out, nc = attention_prefill(
+                cfg.attn, p["attn"], h, positions, local=local, cache=sub,
+                kernel_impl=kernel_impl, continuation=continuation)
+    elif spec.mixer in ("ssm", "rec"):
+        # both ignore ``continuation``, as in the reference: rec starts
+        # from the cache's conv and state, ssm from its conv and a zero
+        # state (C-ref4)
+        keys, fwd, dec, mcfg = (
+            (("conv", "ssm"), ssm_forward, ssm_decode, cfg.ssm)
+            if spec.mixer == "ssm" else
+            (("conv", "h"), rglru_forward, rglru_decode, cfg.rglru))
+        sub = ({k: cache[k] for k in keys} if cache is not None else None)
+        if mode == "decode":
+            out, nc = dec(mcfg, p[spec.mixer], h, sub)
+        else:
+            out, nc = fwd(mcfg, p[spec.mixer], h, cache=sub)
     else:
-        out, nc = ssm_forward(cfg.ssm, p["ssm"], h, cache=sub)
-        if nc is not None:
-            new_cache.update(nc)
+        raise _not_ported(f"the {spec.mixer!r} mixer")
+    if nc is not None:
+        new_cache.update(nc)
     x = x + out
 
     if spec.cross_attn:
@@ -204,27 +235,34 @@ def _apply_block(cfg: ModelConfig, spec: BlockSpec, p, x, *, mode, cache):
 # --------------------------------------------------------------- backbone
 
 
-def _run_segments(cfg: ModelConfig, params, x, *, mode, caches):
+def _run_segments(cfg: ModelConfig, params, x, *, positions, mode, caches,
+                  kernel_impl="xla", continuation=False):
     segs = segment_layers(cfg.block_specs())
     new_caches = [] if caches is not None else None
     for si, (block, rep) in enumerate(segs):
         seg_p = params[f"seg{si}"]
-        seg_c = caches[si] if caches is not None else None
-        ncs = []
+        # one copy of the segment's caches per call: the layers write
+        # their slices of it in place, the caller's caches stay as they were
+        seg_c = (tree_map(lambda a: a.clone(
+            memory_format=torch.contiguous_format), caches[si])
+            if caches is not None else None)
         for r in range(rep):  # the reference's lax.scan over the stack
             p_r = tree_map(lambda a: a[r], seg_p)
             c_r = tree_map(lambda a: a[r], seg_c) if seg_c is not None \
                 else None
-            nc = {} if c_r is not None else None
             for bi, spec in enumerate(block):
                 x, c = _apply_block(
-                    cfg, spec, p_r[f"b{bi}"], x, mode=mode,
-                    cache=(c_r[f"b{bi}"] if c_r else None))
-                if nc is not None:
-                    nc[f"b{bi}"] = c
-            ncs.append(nc)
+                    cfg, spec, p_r[f"b{bi}"], x, positions=positions,
+                    mode=mode, cache=(c_r[f"b{bi}"] if c_r else None),
+                    kernel_impl=kernel_impl, continuation=continuation)
+                if c_r is not None:
+                    # KV leaves come back written in place; the recurrent
+                    # mixers' small states come back new
+                    for k, dst in c_r[f"b{bi}"].items():
+                        if c[k] is not dst:
+                            dst.copy_(c[k])
         if new_caches is not None:
-            new_caches.append(tree_map(lambda *xs: torch.stack(xs), *ncs))
+            new_caches.append(seg_c)
     return x, new_caches
 
 
@@ -251,6 +289,12 @@ def _act_dtype(cfg: ModelConfig, x):
 
 
 def _embed(cfg: ModelConfig, params, tokens):
+    if cfg.encoder is not None:
+        raise _not_ported("the encoder")
+    if cfg.vision is not None:
+        raise _not_ported("prefix-LM (the vision prefix)")
+    if "pos_embed" in params:
+        raise _not_ported("learned decoder positions (pos_embed)")
     x = params["embed"][tokens.long()]
     if cfg.scale_embed:
         x = _scale_embed(cfg, x)
@@ -260,24 +304,27 @@ def _embed(cfg: ModelConfig, params, tokens):
 # ------------------------------------------------------------ entry points
 
 
-def forward_prefill(cfg: ModelConfig, params, tokens, positions, caches):
+def forward_prefill(cfg: ModelConfig, params, tokens, positions, caches, *,
+                    kernel_impl="xla", continuation=False):
     """Prefill a chunk; returns (last-position logits, new caches).
 
-    positions: (B, S) absolute positions of ``tokens``, as the reference
-    takes them; the ``ssm`` mixer does not read them.
+    positions: (B, S) absolute positions of ``tokens`` (supports chunked /
+    continued prefill).  ``kernel_impl="pallas"`` runs whole-prompt
+    attention through the prefill attention kernel (B2);
+    ``continuation=True`` attends over the cached context.
     """
-    if cfg.encoder is not None:
-        raise _not_ported("the encoder")
-    x, new_caches = _run_segments(cfg, params, _embed(cfg, params, tokens),
-                                  mode="prefill", caches=caches)
+    x, new_caches = _run_segments(
+        cfg, params, _embed(cfg, params, tokens), positions=positions,
+        mode="prefill", caches=caches, kernel_impl=kernel_impl,
+        continuation=continuation)
     return _logits(cfg, params, x[:, -1:]), new_caches
 
 
 def forward_decode(cfg: ModelConfig, params, tokens, positions, caches):
-    """One-token decode. tokens (B, 1); positions (B,) current index (not
-    read by the ``ssm`` mixer)."""
+    """One-token decode. tokens (B, 1); positions (B,) current index."""
     x, new_caches = _run_segments(cfg, params, _embed(cfg, params, tokens),
-                                  mode="decode", caches=caches)
+                                  positions=positions, mode="decode",
+                                  caches=caches)
     return _logits(cfg, params, x), new_caches
 
 

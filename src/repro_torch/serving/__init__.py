@@ -1,8 +1,9 @@
 """Serving substrate: the real-compute data plane (steps, engine,
 cluster) and the calibrated iteration-level cluster engine.
 
-The data plane serves the ``ssm`` mixer (mamba2) so far; attention
-models need the attention forwards (ROADMAP A10).
+The data plane serves the attention (global, local ring and int8
+caches), RG-LRU and SSM mixers; MLA, MoE, cross-attention and prefix-LM
+models raise until the rest of ROADMAP A10.
 """
 
 from .cluster import ClusterMetrics, RealCluster  # noqa: F401

@@ -45,16 +45,17 @@ def init_server_state(cfg: ModelConfig, batch: int, max_len: int,
     }
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig, *, continuation: bool = False):
     """Whole-batch prefill: (params, caches, tokens, positions).
 
-    The reference's ``continuation`` flag changes only attention, which
-    the port does not serve yet (ROADMAP A10); the SSM ignores it (C-ref4).
+    ``continuation=True`` gives chunked-prefill semantics (queries attend
+    over the cached context) -- the engine's mixed iterations use it.
     """
 
     def prefill_step(params, caches, tokens, positions):
-        logits, caches = M.forward_prefill(cfg, params, tokens, positions,
-                                           caches)
+        logits, caches = M.forward_prefill(
+            cfg, params, tokens, positions, caches,
+            continuation=continuation)
         return caches, greedy_sample(logits)
 
     return prefill_step
@@ -102,7 +103,7 @@ def make_mixed_step(cfg: ModelConfig, chunk: int):
     decode masks out the prefilling slot.  Returns (state, decode_tokens,
     chunk_last_logits_token).
     """
-    pf = make_prefill_step(cfg)
+    pf = make_prefill_step(cfg, continuation=True)
     dec = make_decode_step(cfg)
 
     # cache leaves are (layer_rep, B, ...): the slot/batch dim is axis 1

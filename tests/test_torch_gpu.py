@@ -275,3 +275,101 @@ def test_mamba2_logits_on_the_card_match_the_cpu(cuda):
         out[str(dev)] = (logits.cpu(), caches[0]["b0"]["ssm"].cpu())
     for a, b in zip(out["cpu"], out[str(cuda)]):
         torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------------- attention serving path
+
+
+def _n_attn(cfg):
+    return sum(s.mixer in ("attn", "attn_local") for s in cfg.block_specs())
+
+
+def test_qwen2_serving_decodes_through_b1(cuda):
+    """Every engine iteration decodes, mixed ones included: B1 launches
+    once per attention layer per iteration, on its f32 route (f32
+    caches)."""
+    cfg = get_config("qwen2-0.5b", reduced=True)
+    n, routes = decode_attention.launches, dict(decode_attention.routes)
+    m = serve(cfg, servers=2, requests=4, device=cuda)
+    assert m.completions == m.arrivals == 4
+    iters = len(m.iter_wall["mixed"]) + len(m.iter_wall["solo"])
+    assert decode_attention.launches - n == _n_attn(cfg) * iters
+    new = {k: v - routes.get(k, 0) for k, v in decode_attention.routes.items()
+           if v != routes.get(k, 0)}
+    assert {k[0] for k in new} == {"float32"}
+
+
+def _card_and_cpu(cfg, steps, kernel_impl):
+    """One model on the CPU and on the card from the same weights: a whole
+    prefill of 40 tokens, two 16-token continuation chunks, ``steps``
+    decodes; the logits of every call."""
+    params = M.init_model(cfg, torch.Generator().manual_seed(0),
+                          device="cpu")
+    rng = np.random.default_rng(1)
+    calls = [(rng.integers(0, cfg.vocab_size, (2, 40)), 0, False)]
+    calls += [(rng.integers(0, cfg.vocab_size, (2, 16)), p0, True)
+              for p0 in (40, 56)]
+    calls += [(rng.integers(0, cfg.vocab_size, (2, 1)), 72 + i, None)
+              for i in range(steps)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda a: a.to(dev), params)
+        caches = M.init_cache(cfg, 2, 96, torch.float32, dev)
+        logits = []
+        for toks, p0, cont in calls:
+            t = torch.from_numpy(toks.astype(np.int32)).to(dev)
+            if cont is None:
+                pos = torch.full((2,), p0, dtype=torch.int32, device=dev)
+                lg, caches = M.forward_decode(cfg, p, t, pos, caches)
+            else:
+                pos = (p0 + torch.arange(t.shape[1], dtype=torch.int32,
+                                         device=dev))[None].expand(2, -1)
+                lg, caches = M.forward_prefill(
+                    cfg, p, t, pos, caches, continuation=cont,
+                    kernel_impl=kernel_impl)
+            logits.append(lg.cpu())
+        out[dev] = logits
+    return out["cpu"], out["cuda"]
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "gemma2-2b",
+                                  "recurrentgemma-2b"])
+def test_attention_models_on_the_card_match_the_cpu(cuda, arch):
+    """Past the reduced window (32): the local rings wrap.  The card runs
+    B2 for the whole prefill and B1 for every decode."""
+    cfg = get_config(arch, reduced=True)
+    n1, n2 = decode_attention.launches, prefill_attention.launches
+    cpu, card = _card_and_cpu(cfg, 8, "pallas")
+    assert decode_attention.launches - n1 == 8 * _n_attn(cfg)
+    assert prefill_attention.launches - n2 == _n_attn(cfg)
+    for a, b in zip(cpu, card):
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
+
+
+def test_whole_prompt_prefill_runs_b2_on_tensor_cores(cuda):
+    """bf16 activations and caches: B2 on its tensor-core route for every
+    layer, then B1 on its bf16 route."""
+    cfg = get_config("qwen2-0.5b", reduced=True).replace(
+        param_dtype="bfloat16")
+    params = M.init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          device=cuda)
+    B, S = 2, 256
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), device=cuda,
+                         generator=gen)
+    pos = torch.arange(S, dtype=torch.int32, device=cuda)[None].expand(B, S)
+    caches = M.init_cache(cfg, B, S + 4, torch.bfloat16, cuda)
+    n_tc = prefill_attention.launches_tc
+    logits, caches = M.forward_prefill(cfg, params, toks, pos, caches,
+                                       kernel_impl="pallas")
+    assert prefill_attention.launches_tc - n_tc == cfg.n_layers
+    n_bf16 = sum(v for k, v in decode_attention.routes.items()
+                 if k[0] == "bfloat16")
+    for i in range(4):
+        logits, caches = M.forward_decode(
+            cfg, params, logits.argmax(-1).to(torch.int32),
+            torch.full((B,), S + i, dtype=torch.int32, device=cuda), caches)
+    assert sum(v for k, v in decode_attention.routes.items()
+               if k[0] == "bfloat16") - n_bf16 == 4 * cfg.n_layers
+    assert logits.dtype == torch.bfloat16
+    assert bool(torch.isfinite(logits.float()).all())

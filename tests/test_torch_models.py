@@ -1,0 +1,241 @@
+"""The port's attention-bearing models held to the JAX package on the CPU.
+
+Reduced qwen2-0.5b, gemma2-2b (local ring + global layers, softcaps),
+phi4-mini-3.8b and recurrentgemma-2b (RG-LRU + local attention) through
+``forward_prefill``/``forward_decode`` of both packages on the same
+weights (carried across by ``params_from_numpy``) and the same tokens,
+numpy draws from fixed seeds.  Prompts run past the reduced windows (32)
+so the local layers' rings wrap.  On the CPU decode attention runs B1's
+plain version and ``kernel_impl="pallas"`` B2's.
+
+Tolerances, relative to the largest magnitude:
+
+* f32: 1e-5 on logits and caches (summation order only); positions
+  bitwise.
+* ``param_dtype="bfloat16"`` with f32 caches: 5e-2 (``tests/
+  test_torch_ssm.py``'s model tolerance), against the reference run with
+  ``unroll=True``, the form whose semantics the port keeps (ROADMAP
+  C-ref5: the scanned form refuses the residual's change of dtype).
+"""
+
+from functools import lru_cache, partial
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as ref_get_config
+from repro.models import model as RM
+from repro_torch.configs import get_config
+from repro_torch.models import model as TM
+from repro_torch.models.params import params_from_numpy
+
+ARCHS = ["qwen2-0.5b", "gemma2-2b", "phi4-mini-3.8b", "recurrentgemma-2b"]
+REL = {"float32": 1e-5, "bfloat16": 5e-2}
+B, MAX_LEN = 2, 96
+
+
+def _close(got, want, rel):
+    """|got - want| <= rel x (|want| + max |want|)."""
+    want = np.asarray(want, np.float32)
+    got = got.float().numpy()
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=rel, atol=rel * scale)
+
+
+def _model(arch, param_dtype="float32"):
+    ref_cfg = ref_get_config(arch, reduced=True).replace(
+        param_dtype=param_dtype)
+    cfg = get_config(arch, reduced=True).replace(param_dtype=param_dtype)
+    rp = jax.tree.map(np.asarray, RM.init_model(ref_cfg,
+                                                jax.random.PRNGKey(1)))
+    return ref_cfg, cfg, rp, params_from_numpy(rp, "cpu")
+
+
+def _caches_close(got, want, rel):
+    flat = jax.tree_util.tree_leaves_with_path(want)
+    assert len(flat) == len(jax.tree.leaves(got))
+    for path, w in flat:
+        g = got
+        for k in path:
+            g = g[k.idx if hasattr(k, "idx") else k.key]
+        assert tuple(g.shape) == w.shape, path
+        if w.dtype == jnp.int32:
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        else:
+            assert g.dtype == torch.float32
+            _close(g, w, rel)
+
+
+@lru_cache(maxsize=None)
+def _ref_jit(fn, ref_cfg, unroll, kw):
+    """The reference's ``fn``, jitted once per config and keyword set
+    (the tests share its compilations)."""
+    return jax.jit(partial(fn, ref_cfg, unroll=unroll, **dict(kw)))
+
+
+class _Pair:
+    """The same model in both packages, stepped together."""
+
+    def __init__(self, arch, param_dtype="float32", unroll=False):
+        self.ref_cfg, self.cfg, self.rp, self.tp = _model(arch, param_dtype)
+        self.rc = RM.init_cache(self.ref_cfg, B, MAX_LEN, jnp.float32)
+        self.tc = TM.init_cache(self.cfg, B, MAX_LEN, torch.float32, "cpu")
+        self.unroll = unroll
+        self.rng = np.random.default_rng(8)
+
+    def _ref(self, fn, **kw):
+        return _ref_jit(fn, self.ref_cfg, self.unroll,
+                        tuple(sorted(kw.items())))
+
+    def prefill(self, S, pos0=0, **kw):
+        toks = self.rng.integers(0, self.cfg.vocab_size, (B, S)).astype(
+            np.int32)
+        pos = np.broadcast_to(np.arange(pos0, pos0 + S)[None], (B, S)
+                              ).astype(np.int32)
+        want, self.rc = self._ref(RM.forward_prefill, **kw)(
+            self.rp, jnp.asarray(toks), jnp.asarray(pos), self.rc)
+        got, self.tc = TM.forward_prefill(
+            self.cfg, self.tp, torch.from_numpy(toks), torch.from_numpy(pos),
+            self.tc, **kw)
+        return got, want
+
+    def decode(self, pos):
+        toks = self.rng.integers(0, self.cfg.vocab_size, (B, 1)).astype(
+            np.int32)
+        p = np.full((B,), pos, np.int32)
+        want, self.rc = self._ref(RM.forward_decode)(
+            self.rp, jnp.asarray(toks), jnp.asarray(p), self.rc)
+        got, self.tc = TM.forward_decode(
+            self.cfg, self.tp, torch.from_numpy(toks), torch.from_numpy(p),
+            self.tc)
+        return got, want
+
+
+def _prefill_then_decode(pair, rel, S=40, steps=6):
+    got, want = pair.prefill(S)
+    assert got.shape == (B, 1, pair.cfg.vocab_size)
+    _close(got, want, rel)
+    for i in range(steps):
+        got, want = pair.decode(S + i)
+        _close(got, want, rel)
+    return got, want
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_and_decode_match_reference_f32(arch):
+    pair = _Pair(arch)
+    _prefill_then_decode(pair, REL["float32"])
+    _caches_close(pair.tc, pair.rc, REL["float32"])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_and_decode_match_unrolled_reference_bf16(arch):
+    """bf16 activations against f32 caches: the first attention layer
+    promotes the residual stream to f32, as the reference's unrolled
+    form does."""
+    pair = _Pair(arch, "bfloat16", unroll=True)
+    got, want = _prefill_then_decode(pair, REL["bfloat16"], steps=3)
+    assert want.dtype == jnp.float32 and got.dtype == torch.float32
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_chunked_continuation_matches_reference(arch):
+    """A 40-token prefill, then two 16-token continuation chunks (the
+    engine's mixed step) over the wrapped rings, then decode."""
+    pair = _Pair(arch)
+    _close(*pair.prefill(40), REL["float32"])
+    for pos0 in (40, 56):
+        _close(*pair.prefill(16, pos0, continuation=True), REL["float32"])
+    for i in range(2):
+        _close(*pair.decode(72 + i), REL["float32"])
+    _caches_close(pair.tc, pair.rc, REL["float32"])
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "gemma2-2b"])
+def test_prefill_pallas_matches_reference(arch):
+    """``kernel_impl="pallas"``: B2's plain version on the port's side,
+    the reference's Pallas kernel (interpret mode) on the other."""
+    pair = _Pair(arch)
+    got, want = pair.prefill(40, kernel_impl="pallas")
+    _close(got, want, REL["float32"])
+    _caches_close(pair.tc, pair.rc, REL["float32"])
+    _close(*pair.decode(40), REL["float32"])
+
+
+def _c_ref5_example(unroll):
+    """qwen2 at bf16 params, f32 caches: a continuation chunk and a
+    decode step, the engine's two iterations."""
+    pair = _Pair("qwen2-0.5b", "bfloat16", unroll=unroll)
+    pair.prefill(16)
+    _close(*pair.prefill(16, 16, continuation=True), REL["bfloat16"])
+    _close(*pair.decode(32), REL["bfloat16"])
+
+
+@pytest.mark.xfail(strict=True, raises=TypeError, reason=(
+    "ROADMAP C-ref5: the reference's scanned layer loop refuses bf16 "
+    "activations against f32 caches (the carry turns f32 after the first "
+    "attention layer), so its RealCluster cannot serve a bf16 attention "
+    "model"))
+def test_c_ref5_scanned_reference_serves_bf16_params_with_f32_caches():
+    _c_ref5_example(unroll=False)
+
+
+def test_c_ref5_port_matches_the_unrolled_reference():
+    _c_ref5_example(unroll=True)
+
+
+@pytest.mark.parametrize("arch,what", [
+    ("grok-1-314b", "the MoE channel"),
+    ("whisper-base", "cross-attention"),  # encoder-decoder
+    ("paligemma-3b", r"prefix-LM \(the vision prefix\)"),
+], ids=["moe", "encoder", "prefix-lm"])
+def test_parts_not_ported_yet_raise_naming_a10(arch, what):
+    cfg = get_config(arch, reduced=True)
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    pos = torch.arange(4, dtype=torch.int32)[None]
+    with pytest.raises(NotImplementedError,
+                       match=f"^{what} is not ported .*ROADMAP A10"):
+        params = TM.init_model(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+        caches = TM.init_cache(cfg, 1, 8, torch.float32, "cpu")
+        TM.forward_prefill(cfg, params, toks, pos, caches)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_leaves_its_input_caches_as_they_were(arch):
+    """The layers write their caches in place, into one copy per segment
+    and call: the caller's caches stay as they were, and every returned
+    leaf is contiguous and shares no memory with them."""
+    cfg = get_config(arch, reduced=True)
+    params = TM.init_model(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    caches = TM.init_cache(cfg, B, MAX_LEN, torch.float32, "cpu")
+    rng = np.random.default_rng(9)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 40)).astype(
+        np.int32))
+    pos = torch.arange(40, dtype=torch.int32)[None].expand(B, 40)
+    _, caches = TM.forward_prefill(cfg, params, toks, pos, caches)
+    for call in ("prefill", "decode"):
+        before = [{k: {n: a.clone() for n, a in c.items()}
+                   for k, c in seg.items()} for seg in caches]
+        if call == "prefill":
+            _, out = TM.forward_prefill(cfg, params, toks[:, :16], pos[:, :16]
+                                        + 40, caches, continuation=True)
+        else:
+            _, out = TM.forward_decode(cfg, params, toks[:, :1],
+                                       torch.full((B,), 40, dtype=torch.int32),
+                                       caches)
+        for seg, seg_before, seg_out in zip(caches, before, out):
+            for k, c in seg.items():
+                for n, a in c.items():
+                    assert torch.equal(a, seg_before[k][n]), (call, k, n)
+                    o = seg_out[k][n]
+                    assert o.is_contiguous(), (call, k, n)
+                    assert o.untyped_storage().data_ptr() \
+                        != a.untyped_storage().data_ptr(), (call, k, n)
+        assert any(not torch.equal(a, seg_out[k][n])
+                   for seg, seg_out in zip(caches, out)
+                   for k, c in seg.items() for n, a in c.items())

@@ -309,6 +309,6 @@ def test_init_params_follows_the_reference_rules():
 
 
 def test_model_raises_for_mixers_not_ported_yet():
-    cfg = get_config("qwen2-0.5b", reduced=True)
+    cfg = get_config("deepseek-v3-671b", reduced=True)  # the mla mixer
     with pytest.raises(NotImplementedError, match="A10"):
         TM.init_cache(cfg, 1, 16, torch.float32, "cpu")
