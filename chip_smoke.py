@@ -72,6 +72,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    layer per decode on its bf16 route, finite logits.  Reduced qwen2,
    gemma2 and recurrentgemma on the card must match the CPU within 1e-4
    over a whole prefill, two continuation chunks and 8 decodes.
+7. optimality gap -- the path of the paper's headline claim (Theorems
+   2-3), ``benchmarks/bench_optimality_gap.py``'s instance: the two
+   overloaded classes (lambda = 1.0, patience 0.1) under the default
+   primitives and pricing, bundled and separate.  R* from the simplex must
+   be the artifact's (570.679, 574.012) and the batched interior point on
+   the card must agree to 1e-6.  ``ctmc_scan`` (the uniformized CTMC's
+   event loop) must equal its plain version at n=16, 8 seeds, horizon 40,
+   float64, both schemes and one telemetry run: every counter exactly, the
+   clock, revenue and accumulators to 1e-12.  Then the gap at the
+   artifact's smallest and largest n (16: 32 seeds, horizon 300; 65536: 3
+   seeds, horizon 100), float64, both schemes in ONE launch (the counts
+   zeroed just before): every replication must reach the horizon, each
+   gap must lie within 4 sigma of ``artifacts/bench/optimality_gap.json``,
+   fall from n=16 to n=65536, and stay above the artifact's -1% noise
+   floor.  Last, ``fluid_steady_state`` of the bundled plan on the card
+   (horizon 300, dt 2e-3, eager) must reach the LP as
+   ``tests/test_fluid_ctmc.py`` requires.  Prints each row's z-score,
+   steps, time and events/s.
 
 It then prints the per-kernel JSON line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -117,6 +135,29 @@ R2_TRUST = 0.95  # PERF.md section 2: the limit for trusting a fitted surface
 # CPU (tests/test_torch_loop.py).
 REF_ROOFLINE_REVENUE = {"seed": 2564.921648134311,
                         "fitted": 3087.8527206313215}
+# phase 7: bench_optimality_gap's OVERLOADED_MIX (name, prompt, decode,
+# lambda, patience) and the rows of its FULL_SCHEDULE that phase 7 runs,
+# n -> (seeds, horizon, warmup)
+GAP_CLASSES = (("decode-heavy", 300, 1000, 1.0, 0.1),
+               ("prefill-heavy", 3000, 400, 1.0, 0.1))
+GAP_SCHEDULE = {16: (32, 300.0, 75.0), 65536: (3, 100.0, 50.0)}
+GAP_ARTIFACT = ROOT / "artifacts" / "bench" / "optimality_gap.json"
+GAP_Z = 4.0  # |gap - artifact| within 4 sqrt(se^2 + se_ref^2)
+GAP_FLOOR_PCT = -1.0  # the artifact's noise_floor_pct: below is a stall
+LP_AGREE = 1e-6  # solve_plan_batch vs the simplex, relative (PLANNING.md)
+CTMC_RTOL = 1e-12  # ctmc_scan vs plain: clock, revenue, accumulators
+# ctmc_scan's check call, (n, seeds, horizon): both sizes of the gap run,
+# the large one cut to ~4.6 k steps (its first decode completions) so that
+# the plain version can follow
+CTMC_CHECK = ((16, 8, 40.0), (65536, 2, 0.03))
+CTMC_RESUME = 500  # steps a launch in the check's second, resumed run
+# FP64 operations of one ctmc_scan step at I classes (events mode): the
+# rates 5I products and 6I - 1 sums, the clock's log1p, division, sums and
+# comparisons (8), the accumulators 10I + 1, the gate's 6I, the routing,
+# pull, abandonment and revenue arithmetic (about 20).  Philox's integer
+# work is not counted, so the bound stays a lower bound.
+CTMC_FLOPS_PER_STEP = {2: 5 * 2 + 6 * 2 - 1 + 8 + 10 * 2 + 1 + 6 * 2 + 20}
+PEAK_FP64 = 34e12  # FLOP/s, H100 SXM, outside the tensor cores
 
 
 def _nvidia_smi() -> str:
@@ -891,6 +932,262 @@ def run_loop(backend: str):
     return art, revenue
 
 
+def _wall_ms(torch, fn, reps=5):
+    """Median host wall of ``fn`` between two synchronizes, in ms: for a
+    wrapper that reads a count back from the card between its launches,
+    which the spin-queued timer cannot take."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * sorted(times)[len(times) // 2]
+
+
+def _ctmc_bound(raws, steps):
+    """(ms, by) of a ctmc_scan call returning the carries ``raws`` (float64,
+    two classes): each input (a parameter block of 16 I + 7 floats and 8
+    ints a replication) read and each output written once, against the
+    FP64 operations of the ``steps`` the replications took."""
+    R = sum(int(r["t"].shape[0]) for r in raws)
+    bytes_ = R * (8 * (16 * 2 + 7) + 8 * 8) + 8 * sum(
+        v.numel() for r in raws for v in r.values())
+    t_bytes = bytes_ / HBM_BW
+    t_ops = CTMC_FLOPS_PER_STEP[2] * steps / PEAK_FP64
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                      else "operations")
+
+
+def check_optimality_gap(torch):
+    """Phase 7: the planner, ctmc_scan against its plain version, the gap
+    at n=16 and n=65536 in one launch, and the fluid's steady state.
+    Returns ctmc_scan's row for the kernels line."""
+    import numpy as np
+
+    from repro_torch.core.ctmc_jax import UniformizedCTMC, run_cells_raw
+    from repro_torch.core.fluid import fluid_steady_state
+    from repro_torch.core.planning import solve_bundled_lp, solve_separate_lp
+    from repro_torch.core.planning_batch import solve_plan_batch
+    from repro_torch.core.policies import gate_and_route
+    from repro_torch.core.types import (Pricing, ServicePrimitives,
+                                        WorkloadClass)
+    from repro_torch.kernels.ctmc_scan import ops as ctmc_ops
+    from repro_torch.kernels.ctmc_scan.ops import (ctmc_scan,
+                                                   ctmc_scan_plain,
+                                                   pack_block)
+
+    art = json.loads(GAP_ARTIFACT.read_text())
+    ref = {(r["scheme"], r["n"]): r for r in art["rows"]}
+    classes = [WorkloadClass(nm, p, d, arrival_rate=lam, patience=th)
+               for nm, p, d, lam, th in GAP_CLASSES]
+    prim, pricing = ServicePrimitives(), Pricing()
+    plans = {"bundled": solve_bundled_lp(classes, prim, pricing),
+             "separate": solve_separate_lp(classes, prim, pricing)}
+    policies = {"bundled": gate_and_route(plans["bundled"]),
+                "separate": gate_and_route(
+                    plans["separate"], name="gate_and_route_separate"
+                ).replace(charging="separate")}
+
+    # -- R* and the batched planner on the card
+    for scheme, plan in plans.items():
+        want = ref[(scheme, 16)]["R_star"]
+        if round(plan.revenue_rate, 3) != want:
+            raise AssertionError(f"{scheme} R* {plan.revenue_rate!r} is not "
+                                 f"the artifact's {want}")
+        t0 = time.perf_counter()
+        pb = solve_plan_batch([classes], prim, pricing, objective=scheme)
+        wall = time.perf_counter() - t0
+        r_jax = float(pb.revenue_rate[0])
+        agree = abs(plan.revenue_rate - r_jax) / (1.0 + abs(plan.revenue_rate))
+        print(f"[gap] {scheme}: R* simplex {plan.revenue_rate!r}, "
+              f"solve_plan_batch on the card {r_jax!r} (converged "
+              f"{bool(pb.converged[0])}, {int(pb.n_iter[0])} iterations, "
+              f"{1e3 * wall:.1f} ms host wall): relative {agree:.3e} "
+              f"(artifact {art['r_star_agreement_rel']:.3e})")
+        if not bool(pb.converged.all()) or agree > LP_AGREE:
+            raise AssertionError(f"{scheme}: solve_plan_batch gave "
+                                 f"{r_jax!r}, relative {agree} > {LP_AGREE}")
+
+    # -- ctmc_scan against its plain version: n=16 (8 seeds, horizon 40)
+    # and n=65536 (2 seeds, horizon 0.03) in one call, as the gap run packs
+    # its cells; once in one launch and once in launches of CTMC_RESUME
+    # steps, which resume the carry (and the probes) from device memory
+    def block(telemetry):
+        sims, keys = [], []
+        for n, seeds, horizon in CTMC_CHECK:
+            for k in (("bundled", "separate") if telemetry is None
+                      else ("bundled",)):
+                sims.append(UniformizedCTMC(
+                    classes, prim, pricing, policies[k], n=n,
+                    horizon=horizon, warmup=horizon / 4,
+                    dtype=torch.float64, telemetry=telemetry))
+                keys.append(torch.stack([torch.tensor([s, 0])
+                                         for s in range(seeds)]))
+        parts = [pack_block(sim.params, sim._static, kk)
+                 for sim, kk in zip(sims, keys)]
+        return (torch.cat([p[0] for p in parts]),
+                torch.cat([p[1] for p in parts]),
+                sims[0].telemetry.n_bins if telemetry else 0)
+
+    def agree(out, plain, label):
+        err = 0.0
+        for k, v in plain.items():
+            if k in ("t", "rev") or k.startswith("acc"):
+                rel = ((out[k] - v).abs() / v.abs().clamp_min(1e-300)).max()
+                err = max(err, float((out[k] - v).abs().max()))
+                if float(rel) > CTMC_RTOL:
+                    raise AssertionError(f"ctmc_scan {label} {k}: relative "
+                                         f"{float(rel)} > {CTMC_RTOL}")
+            elif not torch.equal(out[k], v):
+                raise AssertionError(f"ctmc_scan {label} {k}: a counter "
+                                     f"differs from the plain version's")
+        return err
+
+    row = None
+    for telemetry in (None, True):
+        fp, ip, nb = block(telemetry)
+        n0 = ctmc_scan.launches
+        out = ctmc_scan(fp, ip, n_classes=2, n_bins=nb)
+        one = ctmc_scan.launches - n0
+        saved, ctmc_ops._BLOCK_STEPS = ctmc_ops._BLOCK_STEPS, CTMC_RESUME
+        try:
+            n0 = ctmc_scan.launches
+            resumed = ctmc_scan(fp, ip, n_classes=2, n_bins=nb)
+            many = ctmc_scan.launches - n0
+        finally:
+            ctmc_ops._BLOCK_STEPS = saved
+        if many < 3:
+            raise AssertionError(f"ctmc_scan in blocks of {CTMC_RESUME} "
+                                 f"steps took {many} launches")
+        t0 = time.perf_counter()
+        plain = ctmc_scan_plain(fp, ip, n_classes=2, n_bins=nb)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        err = max(agree(out, plain, f"({one} launch)"),
+                  agree(resumed, plain, f"({many} launches)"))
+        steps = out["n_events"]
+        ms = _wall_ms(torch, lambda: ctmc_scan(fp, ip, n_classes=2,
+                                               n_bins=nb))
+        bound, by = _ctmc_bound([out], float(steps.sum()))
+        desc = (f"n=16 x {CTMC_CHECK[0][1]} horizon {CTMC_CHECK[0][2]} + "
+                f"n=65536 x {CTMC_CHECK[1][1]} horizon {CTMC_CHECK[1][2]}, "
+                f"{fp.shape[0]} replications float64"
+                + (" telemetry" if nb else " both schemes"))
+        print(f"[kernel] ctmc_scan {desc}: equal to the plain version in "
+              f"{one} launch and in {many} launches of {CTMC_RESUME} steps "
+              f"(counters exact, floats max abs err {err!r}); steps per "
+              f"replication max {int(steps.max())} mean "
+              f"{float(steps.mean())!r}; ms={ms!r} "
+              f"({1e6 * ms / float(steps.max())!r} ns per step, "
+              f"{float(steps.max()) / ms * 1e3!r} events/s per replication,"
+              f" {float(steps.sum()) / ms * 1e3!r} in aggregate) "
+              f"plain_ms={plain_ms!r} library_ms=None bound_ms={bound!r} "
+              f"({by}; latency-bound: a serial chain of steps)")
+        if row is None:
+            row = dict(shape=desc, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                       bound_by=by, max_abs_err=err, launches_at_shape=one)
+
+    # -- the gap: both schemes at n=16 and n=65536, in one launch
+    cells, keys = [], []
+    for n, (seeds, horizon, warmup) in GAP_SCHEDULE.items():
+        for scheme in ("bundled", "separate"):
+            sim = UniformizedCTMC(classes, prim, pricing, policies[scheme],
+                                  n=n, horizon=horizon, warmup=warmup,
+                                  dtype=torch.float64)
+            cells.append((sim, list(range(seeds))))  # common seeds per n
+            keys.append((scheme, n))
+    lo, hi = min(GAP_SCHEDULE), max(GAP_SCHEDULE)
+    small = [c for c, k in zip(cells, keys) if k[1] == lo]
+    t16 = _wall_ms(torch, lambda: run_cells_raw(small), reps=3)
+    ctmc_scan.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    raws = run_cells_raw(cells)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    launches = ctmc_scan.launches
+    if launches <= 0:
+        raise AssertionError("the gap run never launched ctmc_scan")
+    total = sum(float(r["n_events"].sum()) for r in raws)
+    small_raws = [r for r, k in zip(raws, keys) if k[1] == lo]
+    small_total = sum(float(r["n_events"].sum()) for r in small_raws)
+    bound, by = _ctmc_bound(raws, total)
+    bound_lo, by_lo = _ctmc_bound(small_raws, small_total)
+    print(f"[gap] one call of {sum(len(s) for _, s in cells)} replications: "
+          f"{launches} launches of ctmc_scan, {wall!r} ms host wall, "
+          f"{total!r} events ({total / wall * 1e3!r} events/s in "
+          f"aggregate), bound_ms={bound!r} ({by}; latency-bound: a serial "
+          f"chain of steps); the n={lo} cells alone (1 launch): {t16!r} ms, "
+          f"{small_total!r} events ({small_total / t16 * 1e3!r} events/s in "
+          f"aggregate), bound_ms={bound_lo!r} ({by_lo})")
+    gaps, failures = {}, []
+    for (sim, seeds), raw, (scheme, n) in zip(cells, raws, keys):
+        res = sim.results_from_raw(raw)
+        if not all(r.t_end == sim.horizon for r in res):
+            failures.append(f"{scheme} n={n}: t_end "
+                            f"{[r.t_end for r in res]} short of the horizon")
+        R = plans[scheme].revenue_rate
+        g = np.array([100.0 * (1.0 - r.revenue_rate_per_server / R)
+                      for r in res])
+        want = ref[(scheme, n)]
+        se = max(float(g.std() / np.sqrt(len(g))), want["gap_se"])
+        z = (float(g.mean()) - want["gap_pct"]) / math.sqrt(
+            se ** 2 + want["gap_se"] ** 2)
+        gaps[(scheme, n)] = float(g.mean())
+        steps = raw["n_events"]
+        t_row = t16 if n == lo else wall
+        print(f"[gap] {scheme} n={n}: gap {float(g.mean())!r}% (se "
+              f"{float(g.std() / np.sqrt(len(g)))!r}, {len(g)} seeds, horizon"
+              f" {sim.horizon}) vs the artifact's {want['gap_pct']}% (se "
+              f"{want['gap_se']}): z={z!r}; steps per replication max "
+              f"{int(steps.max())} of a budget of {sim.n_steps}; "
+              f"{1e6 * t_row / float(steps.max())!r} ns per step, "
+              f"{float(steps.max()) / t_row * 1e3!r} events/s per "
+              f"replication ({'its own' if n == lo else 'the whole'} call "
+              f"{t_row!r} ms)")
+        if abs(z) > GAP_Z:
+            failures.append(f"{scheme} n={n}: gap {float(g.mean())} is "
+                            f"{z:.2f} sigma from the artifact's "
+                            f"{want['gap_pct']}")
+        if float(g.mean()) < GAP_FLOOR_PCT:
+            failures.append(f"{scheme} n={n}: gap {float(g.mean())} below "
+                            f"the noise floor {GAP_FLOOR_PCT}")
+    for scheme in ("bundled", "separate"):
+        if not gaps[(scheme, hi)] < gaps[(scheme, lo)]:
+            failures.append(f"{scheme}: the gap does not fall from n={lo} "
+                            f"to n={hi}: {gaps}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+    # -- the fluid limit of the bundled plan (tests/test_fluid_ctmc.py)
+    plan = plans["bundled"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ss = fluid_steady_state(classes, prim, pricing, plan, horizon=300.0,
+                            dt=2e-3)
+    wall_f = time.perf_counter() - t0
+    print(f"[gap] fluid_steady_state (bundled, horizon 300, dt 2e-3, "
+          f"150000 eager steps on the card): {wall_f:.2f} s host wall "
+          f"({1e6 * wall_f / 150000:.1f} us per step); x {ss['x'].tolist()} "
+          f"vs x* {plan.x.tolist()}, revenue {ss['revenue_rate']!r} vs R* "
+          f"{plan.revenue_rate!r}, qd {ss['qd'].tolist()}, qp "
+          f"{ss['qp'].tolist()} vs {plan.qp.tolist()}")
+    if not (np.allclose(ss["x"], plan.x, rtol=0, atol=5e-3)
+            and abs(ss["revenue_rate"] - plan.revenue_rate)
+            <= 0.02 * plan.revenue_rate
+            and bool(np.all(ss["qd"] < 5e-3))
+            and np.allclose(ss["qp"], plan.qp, rtol=0, atol=2e-2)):
+        raise AssertionError("the fluid's steady state misses the LP")
+    row.update(launches=launches, main_ms=wall, main_bound_ms=bound,
+               main_bound_by=by, main_shape=(
+                   "gap run: " + ", ".join(f"{scheme} n={n} x {len(s)}"
+                                           for (_, s), (scheme, n)
+                                           in zip(cells, keys))))
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -1012,6 +1309,11 @@ def main() -> int:
         launches[k] += n
     print(f"[attn] phase 6 in {time.perf_counter() - t0:.1f} s")
 
+    # 7. optimality gap
+    t0 = time.perf_counter()
+    gap_row = check_optimality_gap(torch)
+    print(f"[gap] phase 7 in {time.perf_counter() - t0:.1f} s")
+
     # the main path's largest shape per kernel stands for it in the line
     main_shape = {"decode_attention": "B=16 S=512 main",
                   "prefill_attention": "C=512 causal main",
@@ -1036,6 +1338,22 @@ def main() -> int:
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"],
                      "shape": f"{r['shape']} bf16"})
+    line.append({"name": "ctmc_scan", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/ctmc_scan.cu",
+                 "replaces": "src/repro/core/ctmc_jax.py:396",
+                 "launches": gap_row["launches"],
+                 "max_abs_err": gap_row["max_abs_err"], "ms": gap_row["ms"],
+                 "plain_ms": gap_row["plain_ms"],
+                 "bound_ms": gap_row["bound_ms"],
+                 "bound_by": gap_row["bound_by"], "library_ms": None,
+                 "shape": gap_row["shape"],
+                 # ms and bound above are the check call's; the main path's
+                 # own call (the gap run, whose launches are counted):
+                 "launches_at_shape": gap_row["launches_at_shape"],
+                 "main_shape": gap_row["main_shape"],
+                 "main_ms": gap_row["main_ms"],
+                 "main_bound_ms": gap_row["main_bound_ms"],
+                 "main_bound_by": gap_row["main_bound_by"]})
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(smi)

@@ -36,9 +36,10 @@ class OnlineControllerConfig:
     objective: str = "bundled"
     sli: Optional[SLISpec] = None
     # "simplex" = the exact serial oracle (repro_torch.core.lp); "lp_jax" =
-    # the batched interior point, which this package does not have yet
-    # (ROADMAP A4): selecting it raises at the first replan.
+    # the batched interior point (repro_torch.core.planning_batch)
     solver: str = "simplex"
+    # where the "lp_jax" replans run: None is the card, "cpu" the host
+    device: Optional[str] = None
 
     def __post_init__(self) -> None:
         if self.solver not in SOLVERS:
@@ -121,11 +122,15 @@ class OnlineController:
     def replan(self, t: float) -> PlanSolution:
         classes = self._planner_classes(t)
         if self.cfg.solver == "lp_jax":
-            raise NotImplementedError(
-                "solver='lp_jax' needs the batched interior-point planner, "
-                "which is not ported yet (ROADMAP A4); use solver='simplex'")
-        plan = solve_plan(classes, self.prim, self.pricing,
-                          objective=self.cfg.objective, sli=self.cfg.sli)
+            from .planning_batch import solve_plan_jax
+
+            plan = solve_plan_jax(classes, self.prim, self.pricing,
+                                  objective=self.cfg.objective,
+                                  sli=self.cfg.sli, device=self.cfg.device)
+        else:
+            plan = solve_plan(classes, self.prim, self.pricing,
+                              objective=self.cfg.objective,
+                              sli=self.cfg.sli)
         return self._publish(plan)
 
     def maybe_replan(self, t: float) -> Optional[PlanSolution]:
@@ -143,15 +148,38 @@ class OnlineController:
 
 def replan_controllers_batch(controllers: Sequence[OnlineController],
                              t: float) -> list:
-    """Replan MANY controllers at one control epoch in a single vmapped
+    """Replan MANY controllers at one control epoch in a single batched
     interior-point solve (paired closed-loop sweeps: every scenario cell
     carries its own controller, and their epochs align by construction).
 
-    All controllers must share objective/SLI config (one LP structure);
-    each contributes its own estimated rates, primitives, pricing and
-    capacity.  Publishes each plan through the normal ``on_replan`` hook
-    and returns the :class:`PlanSolution` list.
+    All controllers must share objective/SLI config (one LP structure)
+    and the config's ``device``; each contributes its own estimated rates,
+    primitives, pricing and capacity.  Publishes each plan through the
+    normal ``on_replan`` hook and returns the :class:`PlanSolution` list.
     """
-    raise NotImplementedError(
-        "replan_controllers_batch needs the batched interior-point planner, "
-        "which is not ported yet (ROADMAP A4)")
+    from .planning_batch import solve_plan_batch
+
+    if not controllers:
+        return []
+    cfg0 = controllers[0].cfg
+    for c in controllers:
+        if (c.cfg.objective, c.cfg.sli, c.cfg.device) != (
+                cfg0.objective, cfg0.sli, cfg0.device):
+            raise ValueError(
+                "replan_controllers_batch needs a homogeneous "
+                "objective/sli/device across controllers (got "
+                f"{(c.cfg.objective, c.cfg.sli, c.cfg.device)} vs "
+                f"{(cfg0.objective, cfg0.sli, cfg0.device)})")
+    instances = [c._planner_classes(t) for c in controllers]
+    pb = solve_plan_batch(
+        instances,
+        prims=[c.prim for c in controllers],
+        pricings=[c.pricing for c in controllers],
+        objective=cfg0.objective,
+        sli=cfg0.sli, device=cfg0.device).require_converged(
+            "replan_controllers_batch")
+    plans = []
+    for k, c in enumerate(controllers):
+        c._next_replan = max(c._next_replan, t + c.cfg.replan_every)
+        plans.append(c._publish(pb.solution(k)))
+    return plans

@@ -1,12 +1,15 @@
-"""Host-side state probes for the Python engine (the numpy half of the
-reference's ``telemetry/probes``).
+"""State probes: the reference's ``telemetry/probes``.
 
 :class:`PyProbes` records per-class queue depth, decode occupancy,
 prefill chunks in flight, gate admit/drop counters, per-server busy time
-and TTFT/E2E latency histograms as time-binned fixed-shape numpy arrays;
-:func:`extract_probes` renders them into the trajectory/SLI report.  The
-device-carry probes of the reference's scan engines are not part of this
-package: no engine here runs a device scan.
+and TTFT/E2E latency histograms as time-binned fixed-shape numpy arrays
+for the Python engines; :func:`extract_probes` renders them into the
+trajectory/SLI report.  The carry probes (:func:`probe_carry`,
+:func:`ctmc_probe_carry`, :func:`time_bin`, :func:`wrap_ctmc_step_probes`)
+are the same arrays as torch tensors with a leading replication axis,
+threaded through the uniformized CTMC's batched step
+(:mod:`repro_torch.kernels.ctmc_scan.ops`).  The engine-trace wrapper
+(``wrap_engine_step_probes``) comes with the trace-replay engines.
 
 Latency histograms use log-spaced bucket edges (:func:`hist_edges`);
 percentiles interpolate within the matched bucket, so they are
@@ -19,8 +22,10 @@ from dataclasses import dataclass
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 __all__ = [
+    "CTMC_PROBE_KEYS",
     "PROBES",
     "ProbeDef",
     "ProbeSpec",
@@ -29,7 +34,10 @@ __all__ = [
     "hist_attainment",
     "hist_edges",
     "hist_percentile",
+    "probe_carry",
     "resolve_probe_spec",
+    "time_bin",
+    "wrap_ctmc_step_probes",
 ]
 
 
@@ -125,9 +133,94 @@ PROBES: Dict[str, ProbeDef] = {
 }
 
 
+# trajectory probes the aggregate CTMC engine can also fill (it has no
+# per-request identity, so the hist/admit probes do not exist there)
+CTMC_PROBE_KEYS = ("tlm_q", "tlm_occ", "tlm_pf", "tlm_drop", "tlm_ev")
+
+
 def hist_edges(spec: ProbeSpec) -> np.ndarray:
     """The ``n_hist - 1`` log-spaced interior bucket edges (seconds)."""
     return np.geomspace(spec.hist_min, spec.hist_max, spec.n_hist - 1)
+
+
+def probe_carry(spec: ProbeSpec, *, n: int, I: int, dtype, batch=(),
+                device=None) -> dict:
+    """Fresh zeroed probe arrays to merge into an engine's carry; each
+    gains the leading ``batch`` axes (the replications)."""
+    nb, nh = spec.n_bins, spec.n_hist
+    b = tuple(batch)
+
+    def z(*shape):
+        return torch.zeros(b + shape, dtype=dtype, device=device)
+
+    return {
+        "tlm_q": z(nb, I), "tlm_occ": z(nb), "tlm_pf": z(nb),
+        "tlm_adm": z(nb, I), "tlm_drop": z(nb), "tlm_ev": z(nb),
+        "tlm_busy_bin": z(nb), "tlm_busy_srv": z(n),
+        "tlm_ttft": z(nh), "tlm_e2e": z(nh),
+    }
+
+
+def ctmc_probe_carry(spec: ProbeSpec, *, I: int, dtype, batch=(),
+                     device=None) -> dict:
+    """The trajectory subset for the aggregate CTMC engine (per-request
+    histograms do not exist at the class-aggregate level)."""
+    full = probe_carry(spec, n=0, I=I, dtype=dtype, batch=batch,
+                       device=device)
+    return {k: full[k] for k in CTMC_PROBE_KEYS}
+
+
+def time_bin(t, horizon, n_bins: int, mask):
+    """Bin index of time ``t`` in ``[0, horizon]``; masked-off lanes map
+    to ``n_bins``, which the carry scatters below drop."""
+    width = horizon / n_bins
+    b = torch.clamp(torch.floor(t / width), 0, n_bins - 1).to(torch.int32)
+    return torch.where(mask, b, n_bins)
+
+
+def _scatter_drop(arr, b, val, *, add: bool):
+    """``arr[r, b[r]] = val[r]`` (or ``+=``) for each replication r, in
+    place; a lane with ``b[r] == n_bins`` is dropped (the reference's
+    ``.at[b].set/add(..., mode="drop")``)."""
+    nb = arr.shape[1]
+    keep = (b < nb).view((-1,) + (1,) * (val.dim() - 1))
+    r = torch.arange(arr.shape[0], device=arr.device)
+    idx = torch.clamp(b, max=nb - 1).long()
+    cur = arr[r, idx]
+    arr[r, idx] = torch.where(keep, cur + val if add else val, cur)
+    return arr
+
+
+def wrap_ctmc_step_probes(step, spec: ProbeSpec, horizon):
+    """Post-step probe pass for the uniformized-CTMC step (class-aggregate
+    state: queue = Q_p, occupancy = Y_m + Y_s, prefills in flight = X).
+
+    ``step(carry, idx) -> (carry, aux)`` works on a batch of replications
+    (leading axis); ``horizon`` is a scalar or one per replication.  The
+    probe arrays are updated in place."""
+    nb = spec.n_bins
+
+    def wrapped(carry, idx):
+        ev0 = carry["n_events"]
+        ab0 = carry["ab_p"] + carry["ab_d"]
+        out, aux = step(carry, idx)
+        # the CTMC step rebuilds its carry dict from scratch; re-attach
+        # the probe arrays before scattering into them
+        out = dict(out)
+        for k in CTMC_PROBE_KEYS:
+            out[k] = carry[k]
+        moved = out["n_events"] > ev0
+        b = time_bin(out["t"], horizon, nb, moved)
+        _scatter_drop(out["tlm_q"], b, out["qp"], add=False)
+        _scatter_drop(out["tlm_occ"], b, (out["ym"] + out["ys"]).sum(-1),
+                      add=False)
+        _scatter_drop(out["tlm_pf"], b, out["x"].sum(-1), add=False)
+        _scatter_drop(out["tlm_drop"], b,
+                      (out["ab_p"] + out["ab_d"] - ab0).sum(-1), add=True)
+        _scatter_drop(out["tlm_ev"], b, out["n_events"] - ev0, add=True)
+        return out, aux
+
+    return wrapped
 
 
 
@@ -255,7 +348,9 @@ def hist_attainment(hist: np.ndarray, edges: np.ndarray,
 
 
 class PyProbes:
-    """Probe collector for :class:`repro_torch.serving.engine_sim.ClusterEngine`.
+    """Probe collector for the Python engines:
+    :class:`repro_torch.serving.engine_sim.ClusterEngine` and
+    :class:`repro_torch.core.simulator.CTMCSimulator`.
 
     Produces the ``tlm_*`` arrays (numpy) under the reference's bin/fill
     semantics, so :func:`extract_probes` renders them identically.

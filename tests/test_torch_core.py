@@ -173,9 +173,15 @@ def test_cluster_engine_probes_bitwise():
 
 
 def test_online_controller_raises_for_unported_batched_planner():
+    """The batched planner is ported now: solver="lp_jax" replans (on the
+    CPU here) where it used to raise, and agrees with the simplex."""
     classes = _classes(types)
-    ctl = OnlineController(
-        classes, types.ServicePrimitives(), types.Pricing(), 4,
-        config=OnlineControllerConfig(solver="lp_jax"))
-    with pytest.raises(NotImplementedError, match="A4"):
-        ctl.replan(0.0)
+    plans = {}
+    for solver in ("simplex", "lp_jax"):
+        ctl = OnlineController(
+            classes, types.ServicePrimitives(), types.Pricing(), 4,
+            config=OnlineControllerConfig(solver=solver, device="cpu"))
+        plans[solver] = ctl.replan(0.0)
+    a, b = plans["simplex"], plans["lp_jax"]
+    assert abs(a.revenue_rate - b.revenue_rate) <= 1e-6 * (
+        1.0 + abs(a.revenue_rate))

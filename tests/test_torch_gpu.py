@@ -373,3 +373,158 @@ def test_whole_prompt_prefill_runs_b2_on_tensor_cores(cuda):
                if k[0] == "bfloat16") - n_bf16 == 4 * cfg.n_layers
     assert logits.dtype == torch.bfloat16
     assert bool(torch.isfinite(logits.float()).all())
+
+
+# -- ctmc_scan: the uniformized CTMC's event loop ---------------------------
+# Kernel and plain version draw the same Philox numbers and take every sum
+# in the same order, so counters are equal and the clock, revenue and
+# accumulators agree to 1e-12 relative (in practice bit for bit).
+CTMC_POLICIES = ["gate_and_route", "gate_and_route_separate",
+                 "prioritize_and_route", "baseline_vllm", "sli_aware",
+                 "sli_aware_general"]
+
+
+def _ctmc_sim(policy, n, dtype, telemetry=False, stepping="events",
+              horizon=10.0):
+    from repro_torch.core.ctmc_jax import UniformizedCTMC
+    from repro_torch.core.planning import (SLISpec, solve_bundled_lp,
+                                           solve_separate_lp)
+    from repro_torch.core import policies as P
+    from repro_torch.core.types import (Pricing, ServicePrimitives,
+                                        WorkloadClass)
+
+    classes = [WorkloadClass("decode_heavy", 300, 1000, 0.5, 0.1),
+               WorkloadClass("prefill_heavy", 3000, 400, 0.5, 0.1)]
+    prim, price = ServicePrimitives(), Pricing(0.1, 0.2)
+    pin = solve_bundled_lp(classes, prim, price,
+                           sli=SLISpec(pin_zero_decode_queue=True))
+    sep = solve_separate_lp(classes, prim, price)
+    pol = {"gate_and_route": lambda: P.gate_and_route(pin),
+           "gate_and_route_separate": lambda: P.gate_and_route(
+               sep, name="s").replace(charging="separate"),
+           "prioritize_and_route": lambda: P.prioritize_and_route(sep),
+           "baseline_vllm": lambda: P.baseline_vllm(pin),
+           "sli_aware": lambda: P.sli_aware_policy(pin),
+           "sli_aware_general": lambda: P.sli_aware_policy(
+               pin, general=True)}[policy]()
+    return UniformizedCTMC(classes, prim, price, pol, n=n, horizon=horizon,
+                           warmup=horizon / 4, dtype=DTYPES_CTMC[dtype],
+                           telemetry=telemetry, stepping=stepping,
+                           device="cuda")
+
+
+DTYPES_CTMC = {"float32": torch.float32, "float64": torch.float64}
+
+
+def _ctmc_equal(got, want):
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        if k in ("t", "rev") or k.startswith("acc"):
+            torch.testing.assert_close(got[k], v, rtol=1e-12, atol=0,
+                                       msg=k)
+        else:
+            assert torch.equal(got[k], v), k
+
+
+@pytest.mark.parametrize("telemetry", [False, True],
+                         ids=["bare", "telemetry"])
+@pytest.mark.parametrize("dtype", list(DTYPES_CTMC))
+@pytest.mark.parametrize("policy", CTMC_POLICIES)
+def test_ctmc_scan_kernel_matches_plain(cuda, policy, dtype, telemetry):
+    from repro_torch.compat import prng_key
+    from repro_torch.kernels.ctmc_scan.ops import (ctmc_scan,
+                                                   ctmc_scan_plain,
+                                                   pack_block)
+
+    sim = _ctmc_sim(policy, 12, dtype, telemetry)
+    fp, ip = pack_block(sim.params, sim._static,
+                        torch.stack([prng_key(s) for s in range(6)]))
+    nb = sim.telemetry.n_bins if telemetry else 0
+    n = ctmc_scan.launches
+    got = ctmc_scan(fp, ip, n_classes=2, n_bins=nb)
+    assert ctmc_scan.launches == n + 1
+    want = ctmc_scan_plain(fp, ip, n_classes=2, n_bins=nb)
+    _ctmc_equal(got, want)
+    assert bool((got["t"] == 10.0).all())
+    assert float(got["n_events"].min()) > 0
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES_CTMC))
+@pytest.mark.parametrize("policy", ["gate_and_route", "sli_aware_general"])
+def test_ctmc_scan_ticks_mode_matches_plain(cuda, policy, dtype):
+    sim = _ctmc_sim(policy, 8, dtype, stepping="ticks", horizon=3.0)
+    got = sim.run_batch_raw(range(4))
+    from repro_torch.kernels.ctmc_scan.ops import ctmc_scan_plain, pack_block
+    from repro_torch.compat import prng_key
+
+    fp, ip = pack_block(sim.params, sim._static,
+                        torch.stack([prng_key(s) for s in range(4)]))
+    _ctmc_equal(got, ctmc_scan_plain(fp, ip, n_classes=2))
+    assert float(got["clip_steps"].sum()) == 0.0
+
+
+def test_ctmc_scan_cells_of_different_size_share_a_launch(cuda):
+    """Two sizes and both schemes in one launch equal each cell's own."""
+    from repro_torch.core.ctmc_jax import run_cells_raw
+    from repro_torch.kernels.ctmc_scan.ops import ctmc_scan
+
+    cells = [(_ctmc_sim("gate_and_route", 8, "float64"), [0, 1]),
+             (_ctmc_sim("gate_and_route_separate", 20, "float64"), [2])]
+    n = ctmc_scan.launches
+    joint = run_cells_raw(cells)
+    assert ctmc_scan.launches == n + 1
+    for (sim, seeds), raw in zip(cells, joint):
+        _ctmc_equal(raw, sim.run_batch_raw(seeds))
+
+
+@pytest.mark.parametrize("dtype,telemetry",
+                         [("float64", False), ("float64", True),
+                          ("float32", False)],
+                         ids=["float64", "float64-telemetry", "float32"])
+def test_ctmc_scan_resumes_across_launches_at_large_n(cuda, monkeypatch,
+                                                      dtype, telemetry):
+    """n=16 and n=65536, both schemes, in one call, as the gap run packs
+    its cells: in one launch and in launches of 500 steps, whose carry,
+    probes and generator counter resume from device memory, both equal to
+    the plain version.  n=65536 runs to horizon 0.03 (~4.6 k steps, the
+    first decode completions) so that the plain version can follow."""
+    from repro_torch.compat import prng_key
+    from repro_torch.kernels.ctmc_scan import ops
+
+    sims = [_ctmc_sim(p, n, dtype, telemetry, horizon=h)
+            for n, h in ((16, 10.0), (65536, 0.03))
+            for p in ("gate_and_route", "gate_and_route_separate")]
+    parts = [ops.pack_block(s.params, s._static,
+                            torch.stack([prng_key(k) for k in range(3)]))
+             for s in sims]
+    fp = torch.cat([p[0] for p in parts])
+    ip = torch.cat([p[1] for p in parts])
+    nb = sims[0].telemetry.n_bins if telemetry else 0
+    n = ops.ctmc_scan.launches
+    one = ops.ctmc_scan(fp, ip, n_classes=2, n_bins=nb)
+    assert ops.ctmc_scan.launches == n + 1
+    monkeypatch.setattr(ops, "_BLOCK_STEPS", 500)
+    many = ops.ctmc_scan(fp, ip, n_classes=2, n_bins=nb)
+    assert ops.ctmc_scan.launches - n - 1 >= 5
+    want = ops.ctmc_scan_plain(fp, ip, n_classes=2, n_bins=nb)
+    _ctmc_equal(one, want)
+    _ctmc_equal(many, want)
+    horizon = torch.cat([torch.full((3,), s.horizon, dtype=fp.dtype,
+                                    device=fp.device) for s in sims])
+    assert torch.equal(one["t"], horizon)
+    assert float(one["n_events"][6:].min()) > 1000  # n=65536 rows
+
+
+def test_ctmc_scan_raises_above_its_class_cap(cuda):
+    from repro_torch.kernels.ctmc_scan.ops import (FSCAL, FVEC, IPAR,
+                                                   MAX_CLASSES, ctmc_scan)
+
+    I = MAX_CLASSES + 1
+    fp = torch.zeros((1, len(FVEC) * I + len(FSCAL)), dtype=torch.float64,
+                     device="cuda")
+    ip = torch.zeros((1, len(IPAR)), dtype=torch.int64, device="cuda")
+    with pytest.raises(ValueError, match="MAX_CLASSES"):
+        ctmc_scan(fp, ip, n_classes=I)
+    with pytest.raises(ValueError, match="int64"):
+        ctmc_scan(fp[:, :len(FVEC) * 2 + len(FSCAL)].contiguous(),
+                  ip.int(), n_classes=2)
