@@ -79,15 +79,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    be the artifact's (570.679, 574.012) and the batched interior point on
    the card must agree to 1e-6.  ``ctmc_scan`` (the uniformized CTMC's
    event loop) must equal its plain version at n=16, 8 seeds, horizon 40,
-   float64, both schemes and one telemetry run: every counter exactly, the
-   clock, revenue and accumulators to 1e-12.  Then the gap at the
-   artifact's smallest and largest n (16: 32 seeds, horizon 300; 65536: 3
-   seeds, horizon 100), float64, both schemes in ONE launch (the counts
-   zeroed just before): every replication must reach the horizon, each
-   gap must lie within 4 sigma of ``artifacts/bench/optimality_gap.json``,
-   fall from n=16 to n=65536, and stay above the artifact's -1% noise
-   floor.  Last, ``fluid_steady_state`` of the bundled plan on the card
-   (horizon 300, dt 2e-3, eager) must reach the LP as
+   with n=65536, 2 seeds, horizon 0.03, float64, both schemes and one
+   telemetry run, in one launch and in launches of 500 steps: every
+   counter exactly, the clock, revenue and accumulators to 1e-12.  Then
+   the gap at the artifact's smallest and largest n (16: 32 seeds, horizon
+   300; 65536: 3 seeds, horizon 100), float64, both schemes in ONE launch
+   (the counts zeroed just before): every replication must reach the
+   horizon, each gap must lie within 4 sigma of
+   ``artifacts/bench/optimality_gap.json``, fall from n=16 to n=65536, and
+   stay above the artifact's -1% noise floor.  Last,
+   ``fluid_steady_state`` of the bundled plan on the card (horizon 300,
+   dt 2e-3, eager) must reach the LP as
    ``tests/test_fluid_ctmc.py`` requires.  Prints each row's z-score,
    steps, time and events/s.
 

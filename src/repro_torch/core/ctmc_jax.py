@@ -5,7 +5,7 @@ Same stochastic law as :class:`repro_torch.core.simulator.CTMCSimulator`
 gate-and-route policy family -- re-expressed so the event loop is a
 fixed-length loop of structurally identical steps.  A batch of
 replications is one call of :func:`repro_torch.kernels.ctmc_scan.ctmc_scan`:
-on the card, the CUDA kernel (one thread per replication); on the CPU,
+on the card, the CUDA kernel (a warp per replication); on the CPU,
 its plain PyTorch version, which holds the step function
 (``kernels/ctmc_scan/ops.py::_build_step``).  The module keeps the
 reference's name (``repro.core.ctmc_jax``) so that a reader finds its

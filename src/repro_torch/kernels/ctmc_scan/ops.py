@@ -527,7 +527,7 @@ def ctmc_scan(fparams, iparams, *, n_classes: int,
               n_bins: int = 0) -> Dict[str, torch.Tensor]:
     """Run every replication of the block to the end of its step budget.
 
-    CUDA tensors launch the kernel (``csrc/ctmc_scan.cu``): one thread per
+    CUDA tensors launch the kernel (``csrc/ctmc_scan.cu``): a warp per
     replication, the carry in registers, in launches of up to
     ``_BLOCK_STEPS`` steps; between launches the carry waits in device
     memory, and the wrapper reads one count (the replications still

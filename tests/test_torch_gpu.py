@@ -515,6 +515,26 @@ def test_ctmc_scan_resumes_across_launches_at_large_n(cuda, monkeypatch,
     assert float(one["n_events"][6:].min()) > 1000  # n=65536 rows
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES_CTMC))
+def test_ctmc_scan_resumes_off_the_ring_blocks(cuda, monkeypatch, dtype):
+    """Launches of 37 steps start off the ring's 32-step blocks (s0 = 37,
+    74, ...): the ring is indexed by the absolute step, so they equal the
+    plain version."""
+    from repro_torch.compat import prng_key
+    from repro_torch.kernels.ctmc_scan import ops
+
+    sim = _ctmc_sim("gate_and_route", 12, dtype, telemetry=True)
+    fp, ip = ops.pack_block(sim.params, sim._static,
+                            torch.stack([prng_key(s) for s in range(5)]))
+    monkeypatch.setattr(ops, "_BLOCK_STEPS", 37)
+    n = ops.ctmc_scan.launches
+    got = ops.ctmc_scan(fp, ip, n_classes=2, n_bins=sim.telemetry.n_bins)
+    assert ops.ctmc_scan.launches - n >= 5
+    _ctmc_equal(got, ops.ctmc_scan_plain(fp, ip, n_classes=2,
+                                         n_bins=sim.telemetry.n_bins))
+    assert bool((got["t"] == 10.0).all())
+
+
 def test_ctmc_scan_raises_above_its_class_cap(cuda):
     from repro_torch.kernels.ctmc_scan.ops import (FSCAL, FVEC, IPAR,
                                                    MAX_CLASSES, ctmc_scan)
