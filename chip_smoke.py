@@ -92,6 +92,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    dt 2e-3, eager) must reach the LP as
    ``tests/test_fluid_ctmc.py`` requires.  Prints each row's z-score,
    steps, time and events/s.
+8. trace-replay engines (``[engine]`` lines) -- the batched
+   ``ClusterEngineJAX`` (its step captured in CUDA graphs of
+   ``BLOCK_STEPS`` steps) at ``benchmarks/bench_engine_speed.py``'s full
+   instance (10 servers, 5825 requests, horizon 60, 32 replications in
+   one call, float32): the legacy leg (one event a step) and the hot leg
+   (fast-forward) must give the artifact's events and iterations exactly
+   and its revenue rate within 1e-5 (``ES_REF``), with no budget
+   exhausted; the hot leg runs again with telemetry.  Prints each leg's
+   wall (median of 3 after a warm-up that captures), loop steps, graph
+   replays, ns a loop step, events/s and the byte bound, and, for the
+   two legs without telemetry, the card's busy time a loop step, the
+   set-up of a call excluded (``_engine_busy``), and its idle share
+   against the leg's wall a loop step; the
+   telemetry overhead comes from hot and hot+telemetry runs taken in
+   turn (median of the pairwise ratios and their range).  The five
+   policies of
+   ``tests/test_engine_diff.py::_mk(seed=42)`` on the card must equal
+   the port's CPU route (worker processes started at the phase's start):
+   lifecycle codes, counts and cursors exactly, times and revenue within
+   1e-5; the randomized router draws the same Philox bits on both.  The
+   streamed replay on the card must equal the drain-mode batch replay at
+   ``test_stream_matches_batch``'s instance (two segments or more), and
+   a ``ScenarioStream``-fed azure_2023 stream (48 servers, rate x20,
+   window 8192, chunks of 2048, horizon 300) must end with no budget
+   exhausted; prints its requests, segments, window peak and events/s.
 
 It then prints the per-kernel JSON line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -160,6 +185,36 @@ CTMC_RESUME = 500  # steps a launch in the check's second, resumed run
 # work is not counted, so the bound stays a lower bound.
 CTMC_FLOPS_PER_STEP = {2: 5 * 2 + 6 * 2 - 1 + 8 + 10 * 2 + 1 + 6 * 2 + 20}
 PEAK_FP64 = 34e12  # FLOP/s, H100 SXM, outside the tensor cores
+# phase 8: bench_engine_speed's instance in full mode: its CLASSES (name,
+# prompt, decode, lambda), the default primitives, pricing (c_p, c_d),
+# 10 servers, synth_azure_trace(horizon 60, base_rate 2, compression
+# 0.02, seed 11) = 5825 requests, 32 replications, gate-and-route
+ES_CLASSES = (("chat", 512, 768, 0.2), ("agent", 1024, 1024, 0.1))
+ES_PRICING = (0.1, 0.2)
+ES_N, ES_HORIZON, ES_REPS = 10, 60.0, 32
+# (events, iterations) over the 32 replications and the mean revenue rate
+# of each leg: the JAX reference, float32 on the CPU, as committed in
+# artifacts/bench/engine_speed.json (legs.legacy, legs.hot)
+ES_REF = {"legacy": (519968.0, 333600.0, 941.5738718374661),
+          "hot": (524128.0, 337760.0, 941.5738067305053)}
+# revenue agreement, relative: the reference's own stream-vs-batch
+# tolerance (tests/test_engine_diff.py)
+ENGINE_RTOL = 1e-5
+ES_TIMED = 3  # timed runs a leg, after one warm-up run that captures
+# hot and hot+telemetry runs taken in turn for the telemetry overhead
+ES_PAIRS = 5
+# card vs CPU route: tests/test_engine_diff.py::_mk(seed=42) (8 servers,
+# horizon 25, compression 0.2, padded to 512), one replay a policy
+DIFF_POLICIES = ("gate_and_route", "vllm", "sarathi", "distserve", "sli")
+# the streamed legs: test_stream_matches_batch's instance (seed 7,
+# compression 0.3, horizon 30, chunk 160), then bench_engine_speed's
+# quick ScenarioStream leg (azure_2023, 48 servers, rate_scale 20,
+# window 8192, chunks of 2048 candidates, horizon 300)
+STREAM_N, STREAM_RATE, STREAM_WINDOW, STREAM_CHUNK = 48, 20.0, 8192, 2048
+STREAM_HORIZON = 300.0
+# the two call lengths, in blocks, whose torch.profiler records are
+# differenced for the card's busy time and idle share a loop step
+ENGINE_PROFILE_BLOCKS = (1, 4)
 
 
 def _nvidia_smi() -> str:
@@ -1190,6 +1245,356 @@ def check_optimality_gap(torch):
     return row
 
 
+# ------------------------------------------------------- phase 8: engines
+def _diff_instance(seed=42, compression=0.2, horizon=25.0):
+    """tests/test_engine_diff.py::_mk through the port: (padded tensors,
+    trace, classes, plan) on 8 servers."""
+    from repro_torch.core.planning import SLISpec, solve_bundled_lp
+    from repro_torch.core.types import (Pricing, ServicePrimitives,
+                                        WorkloadClass)
+    from repro_torch.data.traces import (TraceConfig, synth_azure_trace,
+                                         tensorize_trace, trace_class_means)
+
+    trace = synth_azure_trace(TraceConfig(horizon=horizon, base_rate=2.0,
+                                          compression=compression, seed=seed))
+    classes = [WorkloadClass(nm, m[0], m[1], m[2] / 8, patience=3e-4)
+               for nm, m in zip(("code", "conv"),
+                                trace_class_means(trace, 2))]
+    plan = solve_bundled_lp(classes, ServicePrimitives(), Pricing(0.1, 0.2),
+                            sli=SLISpec(pin_zero_decode_queue=True))
+    return tensorize_trace(trace, pad_to=512), trace, classes, plan
+
+
+def _diff_engine(name, device, **kw):
+    from repro_torch.core import policies as po
+    from repro_torch.core.types import Pricing, ServicePrimitives
+    from repro_torch.serving.engine_jax import ClusterEngineJAX
+    from repro_torch.serving.engine_sim import EngineConfig
+
+    make = {"gate_and_route": po.gate_and_route, "vllm": po.baseline_vllm,
+            "sarathi": po.baseline_sarathi,
+            "distserve": lambda p: po.baseline_distserve(p, 3),
+            "sli": po.sli_aware_policy}[name]
+    tt, _, classes, plan = _diff_instance()
+    return ClusterEngineJAX(classes, make(plan), EngineConfig(
+        ServicePrimitives(), Pricing(0.1, 0.2), n_servers=8), tt,
+        horizon=25.0, device=device, **kw)
+
+
+def _cpu_replay(name: str) -> dict:
+    """One policy's replay on the port's CPU route, in a worker process
+    (the card's twin is replayed meanwhile)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    raw = _diff_engine(name, "cpu").run_batch_raw([0])
+    return {"raw": {k: v.numpy() for k, v in raw.items()},
+            "s": time.perf_counter() - t0}
+
+
+def _same_replay(a: dict, b: dict, label: str) -> None:
+    """Discrete outcomes equal, times and revenue within ENGINE_RTOL."""
+    import numpy as np
+
+    for k in ("st", "n_events", "n_iters", "abandons", "aptr", "t_first",
+              "t_last", "rev", "t"):
+        x, y = np.asarray(a[k], np.float64), np.asarray(b[k], np.float64)
+        ok = (np.allclose(x, y, rtol=ENGINE_RTOL, atol=0.0, equal_nan=True)
+              if k in ("t_first", "t_last", "rev", "t")
+              else np.array_equal(x, y))
+        if not ok:
+            raise AssertionError(f"{label}: {k} differs")
+
+
+def _es_engine(fastforward: bool, telemetry=None, max_steps=None):
+    from repro_torch.core.planning import solve_bundled_lp
+    from repro_torch.core.policies import gate_and_route
+    from repro_torch.core.types import (Pricing, ServicePrimitives,
+                                        WorkloadClass)
+    from repro_torch.data.traces import TraceConfig, synth_azure_trace
+    from repro_torch.serving.engine_jax import ClusterEngineJAX
+    from repro_torch.serving.engine_sim import EngineConfig
+
+    classes = [WorkloadClass(*c) for c in ES_CLASSES]
+    prim, pricing = ServicePrimitives(), Pricing(*ES_PRICING)
+    trace = synth_azure_trace(TraceConfig(horizon=ES_HORIZON, base_rate=2.0,
+                                          compression=0.02, seed=11))
+    plan = solve_bundled_lp(classes, prim, pricing)
+    return ClusterEngineJAX(classes, gate_and_route(plan),
+                            EngineConfig(prim, pricing, ES_N), trace,
+                            horizon=ES_HORIZON, fastforward=fastforward,
+                            telemetry=telemetry, max_steps=max_steps)
+
+
+def _step_bytes(eng, reps: int) -> int:
+    """The bytes one loop step must touch, read and written once: the
+    per-server, per-slot and per-class state of every replication (the
+    carry without its per-request arrays).  The per-request gathers and
+    scatters are left out, so the bound is a lower one."""
+    from repro_torch.serving.engine_jax import _init_carry
+
+    st = eng.statics
+    c = _init_carry(eng.trace.R, st["n"], st["B"], eng.I, eng.dtype,
+                    st["router_kind"], st["has_pw"], st["expiry"],
+                    st["k_events"], st["fastforward"], st["telemetry"],
+                    nr=reps, device="cpu")
+    return 2 * sum(v.numel() * v.element_size() for v in c.values()
+                   if v.shape[1:2] != (eng.trace.R,)
+                   and v.shape[1:2] != (c["st"].shape[1] + st["B"] + 1,))
+
+
+def _engine_busy(torch, fastforward: bool) -> dict:
+    """The card's busy time a loop step, without a call's set-up: two
+    engine_speed calls of ENGINE_PROFILE_BLOCKS blocks, each captured
+    beforehand, under ``torch.profiler``.  Both calls hold the same
+    set-up (carry init, copies into the graph's buffers, clones out), so
+    the differences of their device time (kernels and copies) and of
+    their device span (first start to last end) belong to the extra
+    blocks' steps alone.  The tracer stretches the span (it records
+    every graph node), so the caller sets the busy time against the
+    untraced leg's wall a step for the idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import engine_jax as ej
+
+    rec = []
+    for blocks in ENGINE_PROFILE_BLOCKS:
+        eng = _es_engine(fastforward, max_steps=blocks * ej.BLOCK_STEPS)
+        keys = [eng._key(s) for s in range(ES_REPS)]
+        ej.run(eng.params, keys, **eng.statics)  # captures this length
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ej.run(eng.params, keys, **eng.statics)
+            torch.cuda.synchronize()
+        dev = [e.time_range for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+        if not dev:
+            raise AssertionError("torch.profiler recorded no device event "
+                                 "in the engine's loop")
+        rec.append((len(dev), sum(r.end - r.start for r in dev),
+                    max(r.end for r in dev) - min(r.start for r in dev)))
+    (n0, b0, s0), (n1, b1, s1) = rec
+    steps = (ENGINE_PROFILE_BLOCKS[1] - ENGINE_PROFILE_BLOCKS[0]) \
+        * ej.BLOCK_STEPS
+    return {"events_step": (n1 - n0) / steps,
+            "busy_ns_step": 1e3 * (b1 - b0) / steps,
+            "span_ns_step": 1e3 * (s1 - s0) / steps}
+
+
+def check_engine(torch):
+    """Phase 8: the trace-replay engines on the card (module docstring)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    from repro_torch.serving import engine_jax as ej
+
+    rows = {}
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=len(DIFF_POLICIES),
+                             mp_context=ctx) as pool:
+        # (b)'s CPU route first, so that it overlaps the card's legs
+        cpu = {nm: pool.submit(_cpu_replay, nm) for nm in DIFF_POLICIES}
+
+        # (a) the engine_speed legs, 32 replications in one call each;
+        # hot and hot+tlm are timed in turn, so that drift between runs
+        # falls on both
+        seeds = list(range(ES_REPS))
+        legs = {}
+        for tag, ff, tlm in (("legacy", False, None), ("hot", True, None),
+                             ("hot+tlm", True, True)):
+            eng = _es_engine(ff, tlm)
+            keys = [eng._key(s) for s in seeds]
+
+            def leg(eng=eng, keys=keys):
+                out = ej.run(eng.params, keys, placement="vmap",
+                             **eng.statics)
+                torch.cuda.synchronize()
+                return out
+
+            t0 = time.perf_counter()
+            leg()  # warm-up: builds and captures the block's graph
+            legs[tag] = {"eng": eng, "ff": ff, "run": leg, "walls": [],
+                         "warm": time.perf_counter() - t0}
+
+        def timed(tag):
+            r0 = ej.run.graph_replays
+            t0 = time.perf_counter()
+            raw = legs[tag]["run"]()
+            legs[tag]["walls"].append(time.perf_counter() - t0)
+            legs[tag]["raw"] = raw
+            legs[tag]["replays"] = ej.run.graph_replays - r0
+
+        for _ in range(ES_TIMED):
+            timed("legacy")
+        for _ in range(ES_PAIRS):
+            timed("hot")
+            timed("hot+tlm")
+        for tag, lg in legs.items():
+            eng, raw, walls = lg["eng"], lg["raw"], lg["walls"]
+            replays = lg["replays"]
+            wall = sorted(walls)[len(walls) // 2]
+            events = float(raw["n_events"].sum())
+            iters = float(raw["n_iters"].sum())
+            sums = eng.summaries_from_raw(raw)
+            rev = float(np.mean([m["revenue_rate"] for m in sums]))
+            exhausted = max(m["budget_exhausted"] for m in sums)
+            steps = float(raw["n_loop"].max())
+            if replays <= 0:
+                raise AssertionError(f"engine_speed {tag}: no CUDA-graph "
+                                     f"replay ran the loop")
+            bound_ms = 1e3 * _step_bytes(eng, ES_REPS) * steps / HBM_BW
+            rows[tag] = {"wall_s": wall, "events": events, "iters": iters,
+                         "steps": steps, "replays": replays,
+                         "ns_step": 1e9 * wall / steps,
+                         "events_per_s": events / wall, "rev": rev,
+                         "bound_ms": bound_ms}
+            print(f"[engine] {tag}: events {events:.0f} iters {iters:.0f} "
+                  f"rev {rev!r} budget_exhausted {exhausted}; wall "
+                  f"{1e3 * wall:.3f} ms (median of {len(walls)}; runs "
+                  f"{', '.join(f'{1e3 * w:.3f}' for w in walls)}; warm-up "
+                  f"with capture {lg['warm']:.2f} s); loop steps "
+                  f"{steps:.0f} a replication, {replays} graph replays of "
+                  f"K={ej.BLOCK_STEPS} steps, {1e9 * wall / steps:.0f} "
+                  f"ns a loop step, {events / wall:.4g} events/s; bound "
+                  f"{bound_ms:.4f} ms (bytes: {_step_bytes(eng, ES_REPS)} "
+                  f"a step)")
+            if exhausted != 0:
+                raise AssertionError(f"engine_speed {tag}: budget exhausted")
+            if tag != "hot+tlm":
+                b = _engine_busy(torch, lg["ff"])
+                idle = 1.0 - b["busy_ns_step"] / (1e9 * wall / steps)
+                rows[tag]["idle"] = idle
+                print(f"[engine] {tag}: torch.profiler, calls of "
+                      f"{ENGINE_PROFILE_BLOCKS[0]} and "
+                      f"{ENGINE_PROFILE_BLOCKS[1]} blocks differenced (a "
+                      f"call's set-up excluded): {b['events_step']:.1f} "
+                      f"device events and {b['busy_ns_step']:.0f} ns busy "
+                      f"a loop step (traced span {b['span_ns_step']:.0f} "
+                      f"ns); against the untraced leg's "
+                      f"{1e9 * wall / steps:.0f} ns a loop step the card "
+                      f"idles {idle!r} of the loop (below 0: the traced "
+                      f"kernels ran longer than the untraced step)")
+            want = ES_REF["hot" if lg["ff"] else "legacy"]
+            if (events, iters) != want[:2] or not math.isclose(
+                    rev, want[2], rel_tol=ENGINE_RTOL):
+                raise AssertionError(
+                    f"engine_speed {tag}: events/iters/revenue {events}, "
+                    f"{iters}, {rev!r}; the reference has {want}")
+        # events/s lost to telemetry, pair by pair: 1 - w_hot / w_tlm
+        over = sorted(100.0 * (1.0 - h / t) for h, t in
+                      zip(legs["hot"]["walls"], legs["hot+tlm"]["walls"]))
+        rows["hot+tlm"]["overhead_pct"] = over[len(over) // 2]
+        print(f"[engine] telemetry overhead {over[len(over) // 2]:+.2f}% "
+              f"events/s (hot+tlm vs hot; median of {len(over)} pairs run "
+              f"in turn, range {over[0]:+.2f}% to {over[-1]:+.2f}%)")
+
+        # (b) the card against the port's CPU route, one replay a policy
+        for nm in DIFF_POLICIES:
+            eng = _diff_engine(nm, None)
+            t0 = time.perf_counter()
+            raw = eng.run_batch_raw([0])
+            card_s = time.perf_counter() - t0
+            got = cpu[nm].result(timeout=900)
+            _same_replay({k: v.cpu().numpy() for k, v in raw.items()},
+                         got["raw"], f"card vs CPU, {nm}")
+            s = eng.summaries_from_raw(raw)[0]
+            print(f"[engine] card == CPU route: {nm} ({eng.router_kind}, "
+                  f"{eng.gate_kind}) events {s['n_events']:.0f} arrivals "
+                  f"{s['arrivals']} completions {s['completions']} abandons "
+                  f"{s['abandons']}; card {card_s:.2f} s with capture, CPU "
+                  f"{got['s']:.2f} s")
+
+    # (c) streamed replay on the card
+    rows["stream"] = check_stream(torch)
+    return rows
+
+
+def check_stream(torch):
+    from repro_torch.core.planning import solve_bundled_lp
+    from repro_torch.core.policies import baseline_vllm, gate_and_route
+    from repro_torch.core.types import Pricing, ServicePrimitives, \
+        WorkloadClass
+    from repro_torch.data.traces import tensorize_trace
+    from repro_torch.serving import engine_jax as ej
+    from repro_torch.serving.engine_jax import ClusterEngineJAX
+    from repro_torch.serving.engine_sim import EngineConfig
+    from repro_torch.serving.engine_stream import (StreamingEngineJAX,
+                                                   TraceChunkSource)
+    from repro_torch.workloads import get_scenario
+    from repro_torch.workloads.batch import ScenarioStream
+
+    prim, pricing = ServicePrimitives(), Pricing(0.1, 0.2)
+    _, trace, classes, plan = _diff_instance(7, 0.3, 30.0)
+    trace = [type(r)(rid=r.rid, t_arrival=r.t_arrival, cls=r.cls,
+                     prompt_len=r.prompt_len, decode_len=r.decode_len,
+                     patience=float("inf")) for r in trace]
+    cfg = EngineConfig(prim, pricing, n_servers=8)
+    for make in (gate_and_route, baseline_vllm):
+        pol = make(plan)
+        ref = ClusterEngineJAX(classes, pol, cfg, tensorize_trace(trace),
+                               horizon=30.0, drain=True,
+                               fastforward=True).run(0)
+        s = StreamingEngineJAX(classes, pol, cfg, horizon=30.0,
+                               window=512).run_stream(
+            TraceChunkSource(trace, chunk_size=160), seed=0)
+        for k in ("arrivals", "completions", "abandons"):
+            if s[k] != ref[k]:
+                raise AssertionError(f"stream vs batch ({pol.router}): {k} "
+                                     f"{s[k]} != {ref[k]}")
+        if (not math.isclose(s["revenue_rate"], ref["revenue_rate"],
+                             rel_tol=ENGINE_RTOL)
+                or s["budget_exhausted"] != 0 or s["n_segments"] < 2):
+            raise AssertionError(f"stream vs batch ({pol.router}): {s}")
+        print(f"[engine] stream == drain batch ({pol.router}): arrivals "
+              f"{s['arrivals']} completions {s['completions']} revenue "
+              f"{s['revenue_rate']!r} / {ref['revenue_rate']!r}, "
+              f"{s['n_segments']} segments")
+
+    sc = get_scenario("azure_2023")
+    lam = 2.44 * STREAM_RATE / STREAM_N
+    s_classes = [WorkloadClass(p.name, int(p.mean_prompt),
+                               int(p.mean_decode), lam * p.share)
+                 for p in sc.profiles]
+    s_plan = solve_bundled_lp(s_classes, prim, pricing)
+    eng = StreamingEngineJAX(s_classes, gate_and_route(s_plan),
+                             EngineConfig(prim, pricing, STREAM_N),
+                             horizon=STREAM_HORIZON, window=STREAM_WINDOW)
+    r0 = ej.run.graph_replays
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = eng.run_stream(ScenarioStream(sc, seed=3, chunk_size=STREAM_CHUNK,
+                                      horizon=STREAM_HORIZON,
+                                      rate_scale=STREAM_RATE), seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    replays = ej.run.graph_replays - r0
+    step_bytes = _step_bytes(eng._base, 1)
+    row = {"wall_s": wall, "requests": s["requests"],
+           "bound_ms": 1e3 * step_bytes * s["n_loop"] / HBM_BW,
+           "segments": s["n_segments"], "window_peak": s["window_peak"],
+           "events": s["n_events"], "steps": s["n_loop"],
+           "replays": replays, "events_per_s": s["n_events"] / wall,
+           "ns_step": 1e9 * wall / max(s["n_loop"], 1.0)}
+    print(f"[engine] ScenarioStream azure_2023 x{STREAM_RATE:g} on "
+          f"{STREAM_N} servers, horizon {STREAM_HORIZON:g}: requests "
+          f"{s['requests']} segments {s['n_segments']} window_peak "
+          f"{s['window_peak']}/{STREAM_WINDOW} events {s['n_events']:.0f} "
+          f"loop steps {s['n_loop']:.0f} graph replays {replays} wall "
+          f"{wall:.2f} s (capture included) {row['events_per_s']:.4g} "
+          f"events/s, {row['ns_step']:.0f} ns a loop step; bound "
+          f"{row['bound_ms']:.4f} ms (bytes: {step_bytes} a step); "
+          f"budget_exhausted {s['budget_exhausted']}")
+    if s["budget_exhausted"] != 0 or s["requests"] <= 0 or replays <= 0:
+        raise AssertionError(f"ScenarioStream leg: {s}")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -1315,6 +1720,11 @@ def main() -> int:
     t0 = time.perf_counter()
     gap_row = check_optimality_gap(torch)
     print(f"[gap] phase 7 in {time.perf_counter() - t0:.1f} s")
+
+    # 8. trace-replay engines
+    t0 = time.perf_counter()
+    check_engine(torch)
+    print(f"[engine] phase 8 in {time.perf_counter() - t0:.1f} s")
 
     # the main path's largest shape per kernel stands for it in the line
     main_shape = {"decode_attention": "B=16 S=512 main",

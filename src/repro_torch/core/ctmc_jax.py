@@ -59,7 +59,10 @@ import numpy as np
 import torch
 
 from repro_torch.compat import prng_key, resolve_device
-from repro_torch.kernels.ctmc_scan.ops import ctmc_scan, pack_block
+# ``_categorical`` is re-exported for the trace-replay engine, which
+# imports it from here as the reference's engine does
+from repro_torch.kernels.ctmc_scan.ops import (_categorical, ctmc_scan,  # noqa: F401
+                                              pack_block)
 from repro_torch.telemetry.probes import extract_probes, resolve_probe_spec
 
 from .policies import FCFSGate, OccupancyGate, PolicySpec, PriorityRatioGate

@@ -38,7 +38,8 @@ from ...telemetry.probes import (CTMC_PROBE_KEYS, ProbeSpec,
 
 __all__ = ["FSCAL", "FVEC", "IPAR", "MAX_CLASSES", "GATES", "ROUTERS",
            "CHARGINGS", "STEPPINGS", "CVEC", "CSCAL", "ctmc_scan",
-           "ctmc_scan_plain", "pack_block", "philox4x32", "uniforms"]
+           "ctmc_scan_plain", "pack_block", "philox4x32", "philox_uniforms",
+           "uniforms"]
 
 #: per-class parameter vectors of a block, in order (I entries each)
 FVEC = ("lam_tot", "theta", "mu_p", "mu_m", "mu_s", "w", "w_pre", "w_dec",
@@ -99,6 +100,18 @@ def philox4x32(ctr, key):
         hi1, lo1 = _mulhilo(c2, _PHILOX_M[1])
         c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
     return torch.stack((c0, c1, c2, c3), -1)
+
+
+def philox_uniforms(words, n: int, dtype):
+    """The first ``n`` uniforms in [0, 1) from Philox words ``(..., m)``:
+    float32 takes 24 bits of word k, float64 53 bits of words 2k and
+    2k + 1 (27 from the first, 26 from the second).  Every value converts
+    exactly.  (The trace-replay engine and the batched scenario generator
+    draw this way; :func:`uniforms` keeps the kernel's own layout.)"""
+    if dtype == torch.float32:
+        return (words[..., :n] >> 8).to(torch.float32) * 2.0 ** -24
+    return ((words[..., 0:2 * n:2] >> 5) * 67108864
+            + (words[..., 1:2 * n:2] >> 6)).to(torch.float64) * 2.0 ** -53
 
 
 def uniforms(keys, step0: int, n: int, dtype):

@@ -8,8 +8,8 @@ trajectory/SLI report.  The carry probes (:func:`probe_carry`,
 :func:`ctmc_probe_carry`, :func:`time_bin`, :func:`wrap_ctmc_step_probes`)
 are the same arrays as torch tensors with a leading replication axis,
 threaded through the uniformized CTMC's batched step
-(:mod:`repro_torch.kernels.ctmc_scan.ops`).  The engine-trace wrapper
-(``wrap_engine_step_probes``) comes with the trace-replay engines.
+(:mod:`repro_torch.kernels.ctmc_scan.ops`) and the trace-replay engine's
+(:func:`wrap_engine_step_probes`, :mod:`repro_torch.serving.engine_jax`).
 
 Latency histograms use log-spaced bucket edges (:func:`hist_edges`);
 percentiles interpolate within the matched bucket, so they are
@@ -38,6 +38,7 @@ __all__ = [
     "resolve_probe_spec",
     "time_bin",
     "wrap_ctmc_step_probes",
+    "wrap_engine_step_probes",
 ]
 
 
@@ -189,6 +190,51 @@ def _scatter_drop(arr, b, val, *, add: bool):
     cur = arr[r, idx]
     arr[r, idx] = torch.where(keep, cur + val if add else val, cur)
     return arr
+
+
+def wrap_engine_step_probes(step, spec: ProbeSpec, params: dict):
+    """Post-step probe pass for the trace-replay engine's batched step.
+
+    Wraps the (possibly k-event / fast-forward) step ``step(carry, *args)
+    -> carry``, whose tensors carry a leading replication axis: after each
+    step, last-value trajectories are scattered into the bin of the new
+    clock, counter deltas are added there, and the server-busy indicator
+    is integrated over the step's time advance.  Latency histograms need
+    no step instrumentation: the engine buckets its ``t_first``/
+    ``t_last`` marks once after the loop (the streaming engine folds
+    retired rows at each splice).  The probe arrays are updated in place.
+    """
+    nb = spec.n_bins
+    h_eff = params["h_eff"]
+
+    def wrapped(carry, *args):
+        t0 = carry["t"]
+        busy0 = carry["busy"]
+        qhead0 = carry["qhead"]
+        ab0 = carry["abandons"]
+        ev0 = carry["n_events"]
+        c = step(carry, *args)
+        dt = c["t"].dtype
+        moved = c["n_events"] > ev0
+        b = time_bin(c["t"], h_eff, nb, moved)
+        _scatter_drop(c["tlm_q"], b, (c["qarr"] - c["qhead"]).to(dt),
+                      add=False)
+        _scatter_drop(c["tlm_occ"], b, (c["slot_rid"] >= 0).to(dt)
+                      .sum((1, 2)), add=False)
+        _scatter_drop(c["tlm_pf"], b, (c["pf_rid"] >= 0).to(dt).sum(1),
+                      add=False)
+        _scatter_drop(c["tlm_adm"], b, (c["qhead"] - qhead0).to(dt),
+                      add=True)
+        _scatter_drop(c["tlm_drop"], b, c["abandons"] - ab0, add=True)
+        _scatter_drop(c["tlm_ev"], b, c["n_events"] - ev0, add=True)
+        span = torch.clamp_min(c["t"] - t0, 0.0)
+        bs = busy0.to(dt) * span[:, None]
+        c["tlm_busy_srv"] = c["tlm_busy_srv"] + bs
+        b0 = time_bin(t0, h_eff, nb, moved)
+        _scatter_drop(c["tlm_busy_bin"], b0, bs.sum(1), add=True)
+        return c
+
+    return wrapped
 
 
 def wrap_ctmc_step_probes(step, spec: ProbeSpec, horizon):

@@ -548,3 +548,185 @@ def test_ctmc_scan_raises_above_its_class_cap(cuda):
     with pytest.raises(ValueError, match="int64"):
         ctmc_scan(fp[:, :len(FVEC) * 2 + len(FSCAL)].contiguous(),
                   ip.int(), n_classes=2)
+
+
+# ------------------------------------------------- the trace-replay engines
+ENGINE_RTOL = 1e-5  # times and revenue, float32 (the reference's tolerance)
+ENGINE_FLOATS = ("t_first", "t_last", "rev", "t", "t_next", "pf_left",
+                 "t_buf", "tlm_busy_srv", "tlm_busy_bin")
+
+
+def _engine_instance(seed=42, compression=1.0, horizon=10.0):
+    from repro_torch.core.planning import SLISpec, solve_bundled_lp
+    from repro_torch.core.types import (Pricing, ServicePrimitives,
+                                        WorkloadClass)
+    from repro_torch.data.traces import (TraceConfig, synth_azure_trace,
+                                         tensorize_trace, trace_class_means)
+
+    trace = synth_azure_trace(TraceConfig(horizon=horizon, base_rate=2.0,
+                                          compression=compression, seed=seed))
+    classes = [WorkloadClass(nm, m[0], m[1], m[2] / 8, patience=3e-4)
+               for nm, m in zip(("code", "conv"),
+                                trace_class_means(trace, 2))]
+    plan = solve_bundled_lp(classes, ServicePrimitives(), Pricing(0.1, 0.2),
+                            sli=SLISpec(pin_zero_decode_queue=True))
+    return (tensorize_trace(trace, pad_to=max(64, len(trace))), classes,
+            plan)
+
+
+def _engine(name, device, seed=42, **kw):
+    from repro_torch.core import policies as po
+    from repro_torch.core.types import Pricing, ServicePrimitives
+    from repro_torch.serving.engine_jax import ClusterEngineJAX
+    from repro_torch.serving.engine_sim import EngineConfig
+
+    make = {"gate_and_route": po.gate_and_route, "vllm": po.baseline_vllm,
+            "sarathi": po.baseline_sarathi,
+            "distserve": lambda p: po.baseline_distserve(p, 3),
+            "prioritize": po.prioritize_and_route,
+            "sli": po.sli_aware_policy,
+            "sli_general": lambda p: po.sli_aware_policy(p, general=True)}
+    tt, classes, plan = _engine_instance(seed)
+    return ClusterEngineJAX(classes, make[name](plan), EngineConfig(
+        ServicePrimitives(), Pricing(0.1, 0.2), n_servers=8), tt,
+        horizon=10.0, device=device, **kw)
+
+
+def _engine_equal(card, cpu):
+    assert card.keys() == cpu.keys()
+    for k in cpu:
+        x = cpu[k].numpy().astype(np.float64)
+        y = card[k].cpu().numpy().astype(np.float64)
+        if k in ENGINE_FLOATS:
+            np.testing.assert_allclose(y, x, rtol=ENGINE_RTOL, atol=0,
+                                       err_msg=k)
+        else:
+            np.testing.assert_array_equal(y, x, err_msg=k)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("gate_and_route", {}), ("vllm", {}), ("sarathi", {}),
+    ("distserve", {}), ("prioritize", {}), ("sli", {}), ("sli_general", {}),
+    ("gate_and_route", dict(fastforward=True)),
+    ("gate_and_route", dict(fastforward=True, k_events=3, telemetry=True)),
+    ("vllm", dict(k_events=2, loop="scan")),
+], ids=lambda v: str(v))
+def test_engine_card_matches_cpu_route(cuda, name, kw):
+    """Every raw carry array of the CUDA-graph replay equal to the CPU
+    route's (times and revenue within ENGINE_RTOL); the randomized router
+    draws the same Philox bits on both."""
+    from repro_torch.serving import engine_jax as ej
+
+    r0 = ej.run.graph_replays
+    card = _engine(name, None, **kw).run_batch_raw([0, 1, 2])
+    assert ej.run.graph_replays > r0
+    _engine_equal(card, _engine(name, "cpu", **kw).run_batch_raw([0, 1, 2]))
+
+
+def test_engine_partial_block_at_the_budget_cap(cuda):
+    """A step budget that ends inside a block: the guarded steps past it
+    change nothing, on the card as on the CPU."""
+    from repro_torch.serving import engine_jax as ej
+
+    steps = 3 * ej.BLOCK_STEPS + 7
+    card = _engine("gate_and_route", None, max_steps=steps)
+    got = card.run_batch_raw([0, 1])
+    _engine_equal(got, _engine("gate_and_route", "cpu",
+                               max_steps=steps).run_batch_raw([0, 1]))
+    m = card.summaries_from_raw(got)[0]
+    assert m["budget_exhausted"] == 1.0 and m["n_events"] == steps
+
+
+def test_engine_graph_is_reused_for_a_new_trace_of_the_same_shape(cuda):
+    """The cached graph's buffers are refilled from each call: a second
+    trace of the same padded shape replays the first one's capture and
+    still equals its CPU replay."""
+    from repro_torch.serving import engine_jax as ej
+
+    _engine("vllm", None, seed=42).run_batch_raw([0])
+    n = len(ej._Blocks._cache)
+    card = _engine("vllm", None, seed=43).run_batch_raw([0])
+    assert len(ej._Blocks._cache) == n
+    _engine_equal(card, _engine("vllm", "cpu", seed=43).run_batch_raw([0]))
+
+
+def test_engine_stream_on_the_card_matches_the_cpu(cuda):
+    import dataclasses
+
+    from repro_torch.core.policies import gate_and_route
+    from repro_torch.core.types import Pricing, ServicePrimitives
+    from repro_torch.data.traces import TraceConfig, synth_azure_trace
+    from repro_torch.serving.engine_sim import EngineConfig
+    from repro_torch.serving.engine_stream import (StreamingEngineJAX,
+                                                   TraceChunkSource)
+
+    _, classes, plan = _engine_instance(7, 0.3, 30.0)
+    trace = [dataclasses.replace(r, patience=float("inf"))
+             for r in synth_azure_trace(TraceConfig(
+                 horizon=30.0, base_rate=2.0, compression=0.3, seed=7))]
+    out = {}
+    for dev in (None, "cpu"):
+        eng = StreamingEngineJAX(classes, gate_and_route(plan), EngineConfig(
+            ServicePrimitives(), Pricing(0.1, 0.2), n_servers=8),
+            horizon=30.0, window=512, device=dev)
+        out[dev] = eng.run_stream(TraceChunkSource(trace, chunk_size=64))
+    a, b = out[None], out["cpu"]
+    for k in ("arrivals", "completions", "abandons", "n_events", "n_iters",
+              "n_loop", "n_segments", "window_occupancy"):
+        assert a[k] == b[k], k
+    assert a["revenue_rate"] == pytest.approx(b["revenue_rate"],
+                                              rel=ENGINE_RTOL)
+
+
+@pytest.mark.parametrize("scenario", [
+    "agentic_loops", "azure_2023", "azure_2024", "capacity_churn",
+    "conv_latent", "diurnal", "dolly_mix", "flash_crowd", "link_degrade",
+    "rag_heavy", "rate_shift", "reasoning_long"])
+def test_engine_registry_scenario_60s_budget_not_exhausted(cuda, scenario):
+    """The reference's registry run at its own 60 s horizon, on the card
+    (tests/test_torch_engine_stream.py cuts it to 20 s on the CPU)."""
+    from repro_torch.core.planning import solve_bundled_lp
+    from repro_torch.core.policies import gate_and_route
+    from repro_torch.core.types import (Pricing, ServicePrimitives,
+                                        WorkloadClass)
+    from repro_torch.data.traces import tensorize_trace
+    from repro_torch.serving.engine_jax import ClusterEngineJAX
+    from repro_torch.serving.engine_sim import EngineConfig
+    from repro_torch.serving.engine_stream import StreamingEngineJAX
+    from repro_torch.workloads import get_scenario
+    from repro_torch.workloads.batch import ScenarioStream
+
+    prim, price = ServicePrimitives(), Pricing(0.1, 0.2)
+    sc = get_scenario(scenario)
+    shares = np.array([p.share for p in sc.profiles])
+    shares = shares / shares.sum()
+    classes = [WorkloadClass(p.name, int(p.mean_prompt), int(p.mean_decode),
+                             max(float(2.0 * sh / 6), 1e-3))
+               for p, sh in zip(sc.profiles, shares)]
+    plan = solve_bundled_lp(classes, prim, price)
+    cfg = EngineConfig(prim, price, n_servers=6)
+    if all(np.isinf(p.patience) for p in sc.profiles):
+        m = StreamingEngineJAX(classes, gate_and_route(plan), cfg,
+                               horizon=60.0, window=4096).run_stream(
+            ScenarioStream(sc, seed=0, chunk_size=512, horizon=60.0), seed=0)
+    else:
+        m = ClusterEngineJAX(classes, gate_and_route(plan), cfg,
+                             tensorize_trace(sc.generate(seed=0,
+                                                         horizon=60.0)),
+                             horizon=60.0).run(0)
+    assert m["budget_exhausted"] == 0.0 and m["arrivals"] > 0
+
+
+def test_engine_generate_batch_on_the_card_matches_the_cpu(cuda):
+    """The same Philox bits on both devices: discrete draws equal up to
+    the last bits of log/exp (arrival times within 1e-5 relative)."""
+    from repro_torch.workloads import get_scenario
+    from repro_torch.workloads.batch import generate_batch
+
+    scns = [get_scenario("rate_shift"), get_scenario("agentic_loops")]
+    a = generate_batch(scns, [0, 1], horizon=60.0)
+    b = generate_batch(scns, [0, 1], horizon=60.0, device="cpu")
+    np.testing.assert_array_equal(a["n_real"], b["n_real"])
+    np.testing.assert_array_equal(a["cls"], b["cls"])
+    v = b["valid"]
+    np.testing.assert_allclose(a["t"][v], b["t"][v], rtol=1e-5)
