@@ -89,7 +89,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``artifacts/bench/optimality_gap.json``, fall from n=16 to n=65536, and
    stay above the artifact's -1% noise floor.  Last,
    ``fluid_steady_state`` of the bundled plan on the card (horizon 300,
-   dt 2e-3, eager) must reach the LP as
+   dt 2e-3; the Euler loop replays a CUDA graph of K steps between
+   record points) must reach the LP as
    ``tests/test_fluid_ctmc.py`` requires.  Prints each row's z-score,
    steps, time and events/s.
 8. trace-replay engines (``[engine]`` lines) -- the batched
@@ -118,6 +119,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
    window 8192, chunks of 2048, horizon 300) must end with no budget
    exhausted; prints its requests, segments, window peak and events/s.
 
+9. sweep, fleet and closed loop (``[sweep]`` lines) -- through the
+   port's public entry points, at the benchmarks' own sizes: (a)
+   ``run_sweep`` over ``ctmc_jax`` at bench_heterogeneity's control
+   (n=16, 32 seeds, horizon 300, warmup 75, float64, common random
+   numbers; ``ctmc_scan``'s count zeroed just before and read just
+   after): every cell at its horizon, the mean gap within 1 point of the
+   committed 6.92%, and the ``shard_map`` (tiles of 8) and ``single``
+   placements bit for bit the ``vmap`` cells; (b) ``plan_fleet`` on the
+   card: a one-class paper-a100 fleet equal to ``solve_plan_jax``
+   exactly, and bench_heterogeneity's four fleets at the artifact's R*
+   to 3 decimals; (c) bench_sensitivity's 140-point LP grid through
+   ``lp`` and ``lp_jax``, revenues within 1e-6, all converged; (d) the
+   ``fluid`` evaluator over two_class x {gate_and_route, sli_aware}
+   (150 000 graphed Euler steps each), equal to solo
+   ``fluid_final_state`` runs within 1e-6 and at the reference's values;
+   (e) ``python -m repro_torch.sweep.run`` (called in this process)
+   replaying rate_shift and azure_2023 x {gate_and_route, vllm} at n=8,
+   8 seeds, horizon 300, fast-forward: no budget exhausted, one cell
+   equal to the CPU route (a worker process), the run record passing
+   ``python -m repro_torch.telemetry validate-manifest``; (f)
+   ``compare_policies`` on rate_shift (8 servers), replayed in worker
+   processes: the adaptive lead exactly 5.374133740330568 with the
+   simplex plans and within 1e-6 with ``plans_for_scenarios`` solved on
+   the card, and the adaptive run's Chrome trace valid.  Prints each
+   item's wall, (a)'s events/s and ns an event, (e)'s loop steps and
+   graph captures, with the card's name and power limit.
+
 It then prints the per-kernel JSON line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.
 """
@@ -126,6 +154,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -185,6 +214,8 @@ CTMC_RESUME = 500  # steps a launch in the check's second, resumed run
 # work is not counted, so the bound stays a lower bound.
 CTMC_FLOPS_PER_STEP = {2: 5 * 2 + 6 * 2 - 1 + 8 + 10 * 2 + 1 + 6 * 2 + 20}
 PEAK_FP64 = 34e12  # FLOP/s, H100 SXM, outside the tensor cores
+# the fluid's graphed loop against its eager loop on the card: steps
+FLUID_CMP_STEPS = 3000
 # phase 8: bench_engine_speed's instance in full mode: its CLASSES (name,
 # prompt, decode, lambda), the default primitives, pricing (c_p, c_d),
 # 10 servers, synth_azure_trace(horizon 60, base_rate 2, compression
@@ -215,6 +246,49 @@ STREAM_HORIZON = 300.0
 # the two call lengths, in blocks, whose torch.profiler records are
 # differenced for the card's busy time and idle share a loop step
 ENGINE_PROFILE_BLOCKS = (1, 4)
+# phase 9: bench_heterogeneity.py's FULL_CONTROL (n, seeds, horizon,
+# warmup) and its artifact; the control's mean gap must sit within the
+# optimality-gap study's noise floor (NOISE_FLOOR_PCT) of the committed
+# control gap
+CONTROL = (16, 32, 300.0, 75.0)
+CONTROL_FLOOR_PCT = 1.0
+HET_ARTIFACT = ROOT / "artifacts" / "bench" / "heterogeneity.json"
+# bench_heterogeneity.py's WORKLOAD (name, prompt, decode, patience) at
+# LAMBDA_PER_SERVER, and its FULL_FLEETS: instance -> (fleet, xfer scales)
+FLEET_LAMBDA = 24.0
+FLEET_WORKLOAD = (("decode-heavy", 300, 1000, 0.1),
+                  ("prefill-heavy", 3000, 400, 0.1))
+FULL_FLEETS = {
+    "mixed_a100_h100": ((("a100-cal", 3), ("h100-cal", 3)),
+                        (0.0, 1.0, 4.0)),
+    "mixed_three_class": ((("a100-cal", 2), ("h100-cal", 2),
+                           ("l4-cal", 2)), (1.0,)),
+}
+# bench_sensitivity.py's BASE_PRIM (its full-mode grid: _sensitivity_mixes)
+SENS_BASE_PRIM = dict(alpha=0.0174, beta=6.2e-5, gamma=1 / 0.0089,
+                      batch_cap=16, chunk=256)
+# the fluid grid: the two_class mix at horizon 300, dt 2e-3; per policy
+# the reference's float32 revenue rate and y_err_l1 (repro.sweep's fluid
+# evaluator on a CPU under XLA; R* 305.0, x_err_l1 1e-6 for both)
+FLUID_HORIZON, FLUID_DT = 300.0, 2e-3
+FLUID_REF = {"gate_and_route": (304.961792, 2.357684),
+             "sli_aware": (304.961792, 0.001406)}
+# the sweep CLI's trace replay: scenarios x policies at n=8, 8 seeds,
+# horizon 300 (both scenarios' own), fast-forward; one cell also on the
+# CPU route, its discrete metrics exactly, the rest within ENGINE_RTOL
+CLI_SCENARIOS = ("rate_shift", "azure_2023")
+CLI_POLICIES = ("gate_and_route", "vllm")
+CLI_N, CLI_SEEDS, CLI_HORIZON = 8, 8, 300.0
+CLI_CPU_CELL = ("azure_2023", "gate_and_route")
+CLI_EXACT = ("completions", "arrivals", "abandons", "budget_exhausted",
+             "n_iters", "n_events", "n_steps", "n_dropped",
+             "completion_rate")
+# the closed loop: bench_scenarios.py's rate_shift comparison at
+# ClosedLoopConfig(n_servers=8, seed=0) and its adaptive lead over the
+# hindsight-static plan (artifacts/bench/scenarios.json)
+CL_SCENARIO, CL_N = "rate_shift", 8
+CL_VARIANTS = ("adaptive", "static", "static_cold", "vllm")
+CL_LEAD = 5.374133740330568
 
 
 def _nvidia_smi() -> str:
@@ -1226,7 +1300,9 @@ def check_optimality_gap(torch):
                             dt=2e-3)
     wall_f = time.perf_counter() - t0
     print(f"[gap] fluid_steady_state (bundled, horizon 300, dt 2e-3, "
-          f"150000 eager steps on the card): {wall_f:.2f} s host wall "
+          f"150000 steps on the card, CUDA graphs of "
+          f"{_fluid_graph_steps()} steps between record points): "
+          f"{wall_f:.2f} s host wall "
           f"({1e6 * wall_f / 150000:.1f} us per step); x {ss['x'].tolist()} "
           f"vs x* {plan.x.tolist()}, revenue {ss['revenue_rate']!r} vs R* "
           f"{plan.revenue_rate!r}, qd {ss['qd'].tolist()}, qp "
@@ -1237,12 +1313,46 @@ def check_optimality_gap(torch):
             and bool(np.all(ss["qd"] < 5e-3))
             and np.allclose(ss["qp"], plan.qp, rtol=0, atol=2e-2)):
         raise AssertionError("the fluid's steady state misses the LP")
+    eq, per = _fluid_graph_vs_eager(torch, classes, prim, pricing, plan)
+    print(f"[gap] fluid loop, {FLUID_CMP_STEPS} steps from zero, one "
+          f"record point a {FLUID_CMP_STEPS // 5}: eager {per[False]:.1f} "
+          f"us a step, CUDA graphs {per[True]:.1f} us a step (capture "
+          f"included); bit for bit equal: {eq}")
+    if not eq:
+        raise AssertionError("the graphed fluid loop differs from eager")
     row.update(launches=launches, main_ms=wall, main_bound_ms=bound,
                main_bound_by=by, main_shape=(
                    "gap run: " + ", ".join(f"{scheme} n={n} x {len(s)}"
                                            for (_, s), (scheme, n)
                                            in zip(cells, keys))))
     return row
+
+
+def _fluid_graph_vs_eager(torch, classes, prim, pricing, plan):
+    """The fluid's Euler loop eager and graphed on the card, from the
+    same state, with record points: (bit for bit equal, us a step)."""
+    from repro_torch.core.fluid import _integrate, fluid_params
+
+    p = fluid_params(classes, prim, pricing, plan)
+    z = torch.zeros_like(p["lam"])
+    rec = tuple(range(0, FLUID_CMP_STEPS, FLUID_CMP_STEPS // 5))
+    outs, per = {}, {}
+    for graphed in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[graphed] = _integrate(p, (z,) * 6, 2e-3, FLUID_CMP_STEPS,
+                                   False, rec, graphed=graphed)
+        torch.cuda.synchronize()
+        per[graphed] = 1e6 * (time.perf_counter() - t0) / FLUID_CMP_STEPS
+    (ra, fa), (rb, fb) = outs[False], outs[True]
+    eq = all(torch.equal(a, b) for a, b in zip(ra + fa, rb + fb))
+    return eq, per
+
+
+def _fluid_graph_steps() -> int:
+    from repro_torch.core.fluid import _graph_steps
+
+    return _graph_steps(3000)  # fluid_steady_state's record stride
 
 
 # ------------------------------------------------------- phase 8: engines
@@ -1595,6 +1705,377 @@ def check_stream(torch):
     return row
 
 
+# -------------------------------------------- phase 9: sweep, fleet, control
+def _overloaded_mix():
+    """bench_optimality_gap's OVERLOADED_MIX (GAP_CLASSES)."""
+    from repro_torch.sweep import MixSpec
+
+    return MixSpec(name="two_class_overloaded", classes=tuple(
+        dict(name=nm, prompt_len=p, decode_len=d, arrival_rate=lam,
+             patience=th) for nm, p, d, lam, th in GAP_CLASSES))
+
+
+def _spec_of(d: dict):
+    from repro_torch.sweep import SweepSpec
+
+    return SweepSpec.from_dict(d)
+
+
+def _cpu_sweep_cell(spec_d: dict, mi: int, pi: int) -> list:
+    """One (mix, policy, n) cell group of a sweep on the port's CPU
+    route, in a worker process: its metric dicts, seed by seed."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(1)
+    from repro_torch.sweep.evaluators import MixContext
+    from repro_torch.sweep.spec import cell_seed_sequence, get_evaluator
+
+    spec = _spec_of(spec_d)
+    ctx = MixContext(spec.mixes[mi], spec, device="cpu")
+    n = spec.n_servers[0]
+    seeds = [cell_seed_sequence(spec, mi, pi, 0, s)
+             for s in range(spec.n_seeds)]
+    return [c.metrics for c in get_evaluator(spec.evaluator)(
+        ctx, spec.policies[pi], n, seeds=seeds)]
+
+
+def _closed_loop(plans=None, trace_path=None) -> dict:
+    """``compare_policies`` on rate_shift (worker process); with
+    ``trace_path`` the adaptive replay alone, its trace written."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(1)
+    from repro_torch.workloads import (ClosedLoopConfig, compare_policies,
+                                       run_closed_loop)
+
+    cfg = ClosedLoopConfig(n_servers=CL_N, seed=0)
+    t0 = time.perf_counter()
+    if trace_path is not None:
+        out = run_closed_loop(CL_SCENARIO, "adaptive", cfg,
+                              trace_path=trace_path)
+    else:
+        out = compare_policies(CL_SCENARIO, cfg, variants=CL_VARIANTS,
+                               plans=plans)
+    return {"out": out, "s": time.perf_counter() - t0}
+
+
+def _sensitivity_mixes() -> tuple:
+    """bench_sensitivity.py's lp grid in full mode, one mix a point."""
+    import numpy as np
+
+    from repro_torch.sweep import MixSpec
+    from repro_torch.sweep.run import default_mix
+
+    classes = default_mix("two_class").classes
+
+    def mix(name, prim, pricing=None):
+        return MixSpec(name=name, classes=classes, prim=prim,
+                       pricing=pricing or {})
+
+    out = []
+    sweeps = {"B": [4, 8, 16, 24, 32],
+              "alpha": list(np.linspace(0.02, 0.15, 8)),
+              "beta": list(np.geomspace(1e-5, 1e-3, 8)),
+              "gamma": list(np.linspace(10, 50, 8))}
+    for key, vals in sweeps.items():
+        for v in vals:
+            kw = dict(SENS_BASE_PRIM)
+            if key == "B":
+                kw["batch_cap"] = int(v)
+            else:
+                kw[key] = float(v)
+            out.append(mix(f"{key}={float(v):.6g}", kw))
+    for Bv in (4, 8, 16, 32):
+        for bv in np.geomspace(1e-5, 5e-4, 4):
+            out.append(mix(f"B={Bv}_beta={bv:.6g}",
+                           dict(SENS_BASE_PRIM, batch_cap=Bv, beta=bv)))
+    for k in (0.15, 0.3, 0.6, 1.2, 2.4):
+        for f in np.linspace(0.05, 0.95, 19):
+            out.append(mix(f"k={k:g}_f={f:.4f}", dict(SENS_BASE_PRIM),
+                           pricing=dict(c_p=f * k, c_d=(1 - f) * k)))
+    return tuple(out)
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_sweep(torch, smi: str) -> dict:
+    """Phase 9: the sweep, fleet and closed-loop layers on the card
+    (module docstring); returns ctmc_scan's launches in item (a)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    from repro_torch.core.fluid import fluid_final_state
+    from repro_torch.core.hetero import FleetSpec, plan_fleet
+    from repro_torch.core.planning_batch import solve_plan_jax
+    from repro_torch.core.types import Pricing, WorkloadClass
+    from repro_torch.kernels.ctmc_scan.ops import ctmc_scan
+    from repro_torch.serving import engine_jax as ej
+    from repro_torch.sweep import MixSpec, SweepSpec, run_sweep
+    from repro_torch.sweep.evaluators import MixContext
+    from repro_torch.sweep.fluid_batch import fluid_policy_plan
+    from repro_torch.sweep.run import default_mix
+    from repro_torch.sweep.run import main as sweep_main
+    from repro_torch.telemetry.trace import validate_trace
+    from repro_torch.workloads import (ClosedLoopConfig, get_scenario,
+                                       plans_for_scenarios)
+
+    print(f"[sweep] card: {smi}")
+    times, failures = {}, []
+    out_dir = ROOT / "build" / "phase9"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    het = json.loads(HET_ARTIFACT.read_text())
+    # (e)'s spec, as the CLI below builds it from its flags
+    cli_spec = SweepSpec(
+        name="sweep_engine_jax", evaluator="engine_jax",
+        policies=CLI_POLICIES, n_servers=(CLI_N,), n_seeds=CLI_SEEDS,
+        seed=0, mixes=tuple(
+            MixSpec(name=s, scenario=s, trace=dict(
+                horizon=min(CLI_HORIZON, get_scenario(s).horizon)))
+            for s in CLI_SCENARIOS),
+        horizon=CLI_HORIZON, warmup=30.0,
+        extra={"engine_jax": {"fastforward": True}})
+    cpu_mi, cpu_pi = CLI_SCENARIOS.index(CLI_CPU_CELL[0]), \
+        CLI_POLICIES.index(CLI_CPU_CELL[1])
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=4, mp_context=ctx) as pool:
+        # the host's work first, so that it overlaps the card's items
+        cpu_cell = pool.submit(_cpu_sweep_cell, cli_spec.to_dict(), cpu_mi,
+                               cpu_pi)
+        cl_simplex = pool.submit(_closed_loop)
+        trace_path = out_dir / "closed_loop_rate_shift_adaptive.json"
+        cl_trace = pool.submit(_closed_loop, None, str(trace_path))
+
+        # (a) the heterogeneity control through run_sweep, three placements
+        n, seeds, horizon, warmup = CONTROL
+        spec = SweepSpec(
+            name=f"heterogeneity_control_n{n}", evaluator="ctmc_jax",
+            policies=("gate_and_route",), n_servers=(n,), n_seeds=seeds,
+            seed=0, mixes=(_overloaded_mix(),), horizon=horizon,
+            warmup=warmup,
+            extra={"crn_policies": True, "ctmc_jax": {"x64": True}})
+        ctmc_scan.launches = 0
+        res, wall = _timed(torch, lambda: run_sweep(spec))
+        launches = ctmc_scan.launches
+        times["a vmap"] = wall
+        gaps = np.array([c.metrics["gap_pct"] for c in res.cells])
+        ev = np.array([c.metrics["n_events"] for c in res.cells])
+        t_end = [c.metrics["t_end"] for c in res.cells]
+        committed = het["control"]["committed_gap_pct"]
+        print(f"[sweep] (a) {spec.name}: {len(res.cells)} cells, ctmc_scan "
+              f"launches {launches}, mean gap {gaps.mean()!r}% (ci "
+              f"{1.96 * gaps.std() / np.sqrt(len(gaps))!r}) vs committed "
+              f"{committed}%; wall {wall:.3f} s, "
+              f"{ev.sum() / wall:.4g} events/s and "
+              f"{1e9 * wall / ev.max():.1f} ns a step of the longest "
+              f"replication ({ev.max():.0f} events), both over the "
+              f"sweep's host wall, its plan and set-up included")
+        if launches <= 0:
+            failures.append("(a) ctmc_scan was never launched")
+        if any(t != horizon for t in t_end):
+            failures.append(f"(a) a cell stopped short of {horizon}: "
+                            f"{min(t_end)}")
+        if abs(gaps.mean() - committed) > CONTROL_FLOOR_PCT:
+            failures.append(f"(a) mean gap {gaps.mean()} off {committed} "
+                            f"by more than {CONTROL_FLOOR_PCT}")
+        want = [c.metrics for c in res.cells]
+        for label, extra in (
+                ("shard_map", {"placement": "shard_map",
+                               "shard": {"max_cells_per_device": 8}}),
+                ("single", {"placement": "single"})):
+            sp = SweepSpec.from_dict(dict(
+                spec.to_dict(), extra=dict(spec.extra, **extra)))
+            r2, wall = _timed(torch, lambda: run_sweep(sp))
+            times[f"a {label}"] = wall
+            same = [c.metrics for c in r2.cells] == want
+            print(f"[sweep] (a) placement {label} {extra.get('shard', '')}: "
+                  f"cells bit for bit the vmap cells: {same}; wall "
+                  f"{wall:.3f} s")
+            if not same:
+                failures.append(f"(a) {label} cells differ from vmap")
+
+        # (b) fleet planning on the card
+        def fleets():
+            ov = [WorkloadClass(*c) for c in GAP_CLASSES]
+            h = plan_fleet(ov, FleetSpec.of([("paper-a100", n)],
+                                            xfer_scale=0.0), Pricing())
+            hom = solve_plan_jax(ov)
+            cl = [WorkloadClass(nm, p, d, FLEET_LAMBDA, th)
+                  for nm, p, d, th in FLEET_WORKLOAD]
+            rows = [(name, xs, plan_fleet(cl, FleetSpec.of(
+                list(fleet), xfer_scale=xs), Pricing(*ES_PRICING)))
+                for name, (fleet, xss) in FULL_FLEETS.items()
+                for xs in xss]
+            return h, hom, rows
+
+        (h, hom, rows), times["b"] = _timed(torch, fleets)
+        exact = (float(h.revenue_rate) == float(hom.revenue_rate)
+                 and np.array_equal(h.pool_plan(0).x, hom.x))
+        print(f"[sweep] (b) one-class paper-a100 fleet, xfer 0: plan_fleet "
+              f"R* {float(h.revenue_rate)!r}, solve_plan_jax "
+              f"{float(hom.revenue_rate)!r}: degenerate_exact {exact}")
+        if not exact:
+            failures.append("(b) the one-class fleet is not exact")
+        art = {(r["instance"], r["xfer_scale"]): r["R_star"]
+               for r in het["rows"]}
+        for name, xs, hp in rows:
+            got = float(hp.revenue_rate)
+            print(f"[sweep] (b) {name} xfer {xs}: R* {got!r} vs the "
+                  f"artifact's {art[(name, xs)]}")
+            if round(got, 3) != art[(name, xs)]:
+                failures.append(f"(b) {name} xfer {xs}: R* {got}")
+
+        # (c) bench_sensitivity's lp grid, the simplex and the card's IPM
+        mixes = _sensitivity_mixes()
+        cells = {}
+        for ev_name in ("lp", "lp_jax"):
+            sp = SweepSpec(name="sensitivity", evaluator=ev_name,
+                           policies=("lp",), n_servers=(1,), mixes=mixes)
+            r, times[f"c {ev_name}"] = _timed(torch, lambda: run_sweep(sp))
+            cells[ev_name] = r.cells
+        rel = max(abs(a.metrics["revenue"] - b.metrics["revenue"])
+                  / abs(a.metrics["revenue"])
+                  for a, b in zip(cells["lp"], cells["lp_jax"]))
+        conv = all(c.metrics["lp_converged"] == 1.0 for c in cells["lp_jax"])
+        print(f"[sweep] (c) {len(mixes)} LPs: max relative revenue "
+              f"difference lp_jax vs lp {rel!r}, all converged {conv}; "
+              f"lp {times['c lp']:.3f} s, lp_jax {times['c lp_jax']:.3f} s")
+        if not (rel <= LP_AGREE and conv):
+            failures.append(f"(c) lp_jax vs lp {rel}, converged {conv}")
+
+        # (d) the fluid grid, graphed Euler loop on the card
+        two = default_mix("two_class")
+        sp = SweepSpec(name="fluid", evaluator="fluid",
+                       policies=tuple(FLUID_REF), n_servers=(1,),
+                       mixes=(two,), horizon=FLUID_HORIZON)
+        r, times["d grid"] = _timed(torch, lambda: run_sweep(sp))
+        fctx = MixContext(two, sp)
+
+        def solos():
+            out = {}
+            for tok in FLUID_REF:
+                from repro_torch.core.fluid import fluid_params
+
+                kind, rnd = fluid_policy_plan(tok)
+                p = fluid_params(fctx.classes, fctx.prim, fctx.pricing,
+                                 fctx.plan(kind), randomized_router=rnd)
+                z = torch.zeros_like(p["lam"])
+                st, rev = fluid_final_state(
+                    p, (z,) * 6, FLUID_DT,
+                    n_steps=int(FLUID_HORIZON / FLUID_DT), randomized=rnd)
+                out[tok] = (float(rev), st[1].cpu().numpy())
+            return out
+
+        solo, times["d solo"] = _timed(torch, solos)
+        for c in r.cells:
+            m, (rev0, ym0) = c.metrics, FLUID_REF[c.policy]
+            s_rev, s_x = solo[c.policy]
+            print(f"[sweep] (d) fluid {c.policy}: revenue "
+                  f"{m['revenue_rate']!r} (solo {s_rev!r}, reference "
+                  f"{rev0}) R* {m['R_star']!r} x_err_l1 {m['x_err_l1']!r} "
+                  f"y_err_l1 {m['y_err_l1']!r} (reference {ym0})")
+            sx = np.array([m["avg_x/0"], m["avg_x/1"]])
+            if not (math.isclose(m["revenue_rate"], s_rev, rel_tol=1e-6)
+                    and np.allclose(sx, s_x, rtol=1e-6, atol=0.0)):
+                failures.append(f"(d) {c.policy}: grid != solo")
+            if not (math.isclose(m["revenue_rate"], rev0, rel_tol=1e-4)
+                    and m["x_err_l1"] <= 1e-4
+                    and abs(m["y_err_l1"] - ym0) <= 1e-3):
+                failures.append(f"(d) {c.policy}: off the reference")
+        print(f"[sweep] (d) grid {times['d grid']:.2f} s, solos "
+              f"{times['d solo']:.2f} s ({int(FLUID_HORIZON / FLUID_DT)} "
+              f"steps each)")
+
+        # (e) trace replay through the sweep CLI
+        out = out_dir / f"{cli_spec.name}.json"
+        r0, c0 = ej.run.graph_replays, ej.run.graph_captures
+        argv = ["--evaluator", "engine_jax", "--scenarios",
+                ",".join(CLI_SCENARIOS), "--policies",
+                ",".join(CLI_POLICIES), "--ns", str(CLI_N), "--n-seeds",
+                str(CLI_SEEDS), "--horizon", str(CLI_HORIZON), "--extra",
+                json.dumps(cli_spec.extra), "--name", cli_spec.name,
+                "--out", str(out)]
+        print(f"[sweep] (e) python -m repro_torch.sweep.run "
+              f"{' '.join(argv)}")
+        rc, times["e"] = _timed(torch, lambda: sweep_main(argv))
+        replays = ej.run.graph_replays - r0
+        captures = ej.run.graph_captures - c0
+        from repro_torch.sweep import SweepResult
+
+        res = SweepResult.load(out)
+        budget = max(c.metrics["budget_exhausted"] for c in res.cells)
+        ev = sum(c.metrics["n_events"] for c in res.cells)
+        print(f"[sweep] (e) rc {rc}, {len(res.cells)} cells, loop steps "
+              f"{replays * ej.BLOCK_STEPS} ({replays} graph replays of "
+              f"{ej.BLOCK_STEPS}), graph captures {captures}, events "
+              f"{ev:.0f}, budget_exhausted max {budget}, wall "
+              f"{times['e']:.2f} s")
+        if rc != 0 or budget != 0 or res.spec.to_dict() != \
+                cli_spec.to_dict():
+            failures.append(f"(e) rc {rc}, budget {budget}, spec "
+                            f"{res.spec.to_dict() == cli_spec.to_dict()}")
+        mpath = out.with_name(out.stem + ".runs.jsonl")
+        chk = subprocess.run(
+            [sys.executable, "-m", "repro_torch.telemetry",
+             "validate-manifest", str(mpath)], capture_output=True,
+            text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        print(f"[sweep] (e) {chk.stdout.strip()}")
+        if chk.returncode != 0:
+            failures.append(f"(e) manifest: {chk.stdout} {chk.stderr}")
+        card = res.select(mix=CLI_CPU_CELL[0], policy=CLI_CPU_CELL[1])
+        host = cpu_cell.result()
+        bad = [k for a, b in zip(card, host) for k in a.metrics
+               if not (a.metrics[k] == b[k]
+                       or (k not in CLI_EXACT and math.isclose(
+                           a.metrics[k], b[k], rel_tol=ENGINE_RTOL))
+                       or (math.isnan(a.metrics[k]) and math.isnan(b[k])))]
+        print(f"[sweep] (e) {CLI_CPU_CELL} on the card vs the CPU route, "
+              f"{len(host)} seeds: {'equal' if not bad else bad}")
+        if bad or len(card) != len(host):
+            failures.append(f"(e) card vs CPU: {bad}")
+
+        # (f) the closed loop: plans on the card, replays on the host
+        scn = get_scenario(CL_SCENARIO)
+        cfg = ClosedLoopConfig(n_servers=CL_N, seed=0)
+        trace = scn.generate(seed=cfg.seed, horizon=cfg.horizon,
+                             compression=cfg.compression,
+                             rate_scale=cfg.rate_scale)
+        (plans,), times["f plans"] = _timed(
+            torch, lambda: plans_for_scenarios([scn], [trace], [cfg]))
+        card_plans = pool.submit(_closed_loop, plans).result()
+        simplex = cl_simplex.result()
+        traced = cl_trace.result()
+        lead_c = card_plans["out"]["adaptive_lead_pct"]
+        lead_s = simplex["out"]["adaptive_lead_pct"]
+        errs = validate_trace(trace_path)
+        print(f"[sweep] (f) {CL_SCENARIO} n={CL_N}: "
+              f"{simplex['out']['n_requests']} requests; adaptive lead "
+              f"{lead_s!r}% (simplex plans, {simplex['s']:.2f} s), "
+              f"{lead_c!r}% (plans on the card in "
+              f"{times['f plans']:.3f} s, replays {card_plans['s']:.2f} s); "
+              f"adaptive trace {len(json.loads(trace_path.read_text())['traceEvents'])} "
+              f"events, {traced['out']['replans']:.0f} replans, "
+              f"valid: {not errs}")
+        if lead_s != CL_LEAD or abs(lead_c - CL_LEAD) > 1e-6 or errs:
+            failures.append(f"(f) leads {lead_s} / {lead_c}, trace "
+                            f"{errs[:3]}")
+    if failures:
+        raise AssertionError("phase 9: " + "; ".join(failures))
+    print("[sweep] wall by item (s): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in times.items()))
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -1726,6 +2207,11 @@ def main() -> int:
     check_engine(torch)
     print(f"[engine] phase 8 in {time.perf_counter() - t0:.1f} s")
 
+    # 9. the sweep, fleet and closed-loop layers
+    t0 = time.perf_counter()
+    sweep_row = check_sweep(torch, smi)
+    print(f"[sweep] phase 9 in {time.perf_counter() - t0:.1f} s ({smi})")
+
     # the main path's largest shape per kernel stands for it in the line
     main_shape = {"decode_attention": "B=16 S=512 main",
                   "prefill_attention": "C=512 causal main",
@@ -1765,7 +2251,9 @@ def main() -> int:
                  "main_shape": gap_row["main_shape"],
                  "main_ms": gap_row["main_ms"],
                  "main_bound_ms": gap_row["main_bound_ms"],
-                 "main_bound_by": gap_row["main_bound_by"]})
+                 "main_bound_by": gap_row["main_bound_by"],
+                 # phase 9's own path (the heterogeneity control sweep)
+                 "launches_phase9": sweep_row["launches"]})
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(smi)

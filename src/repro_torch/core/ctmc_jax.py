@@ -53,7 +53,7 @@ threefry, so the port matches the reference in distribution, not path.
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -298,24 +298,37 @@ class UniformizedCTMC:
         """One replication; returns the raw carry (tensors)."""
         return run_uniformized(self.params, seed, **self._static)
 
-    def run_batch_raw(self, seeds: Sequence, *,
-                      placement: str = "vmap") -> dict:
+    def run_batch_raw(self, seeds: Sequence, *, placement: str = "vmap",
+                      shard: Optional[dict] = None) -> dict:
         """All replications in one batch; leaves gain a leading
         replication axis.
 
-        ``placement``: ``"vmap"`` (default) runs the batch as one call;
-        ``"shard_map"``, the reference's partition over a device mesh,
-        comes with the sweep layer (ROADMAP A8) and raises until then.
+        ``placement`` picks the execution layout (see
+        :mod:`repro_torch.sweep.sharded`): ``"vmap"`` (default) runs the
+        batch as one call, ``"shard_map"`` splits it over the devices'
+        cell list (bitwise identical results; the leaves come back as
+        CPU tensors), ``"single"`` runs one call per seed.  ``shard``
+        forwards ``devices`` and the tiling kwargs (``n_devices``,
+        ``max_cells_per_device``, ``bytes_per_cell``,
+        ``memory_budget``) to :func:`repro_torch.sweep.sharded.
+        run_sharded`; its report is kept as ``self.shard_report``.
         """
+        if placement == "single":
+            outs = [self.run_raw(s) for s in seeds]
+            return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
         if placement == "vmap":
             return run_uniformized_batch(self.params, list(seeds),
                                          **self._static)
         if placement == "shard_map":
-            raise NotImplementedError(
-                "placement='shard_map' needs sweep/sharded.py, which is not "
-                "ported yet (ROADMAP A8); use 'vmap'")
+            from repro_torch.sweep.sharded import run_sharded
+
+            static = dict(self._static)
+            raw, self.shard_report = run_sharded(
+                lambda p, k: run_uniformized_batch(p, k, **static),
+                self.params, _keys(list(seeds)), **(shard or {}))
+            return raw
         raise ValueError(f"unknown placement {placement!r} (expected "
-                         f"vmap|shard_map)")
+                         f"single|vmap|shard_map)")
 
     def telemetry_from_raw(self, raw: dict) -> dict:
         """Host-side probe report (:func:`extract_probes`) from a raw
@@ -361,6 +374,7 @@ class UniformizedCTMC:
         return self._to_result({k: v.cpu().numpy()
                                 for k, v in self.run_raw(seed).items()})
 
-    def run_batch(self, seeds: Sequence, *, placement: str = "vmap") -> list:
+    def run_batch(self, seeds: Sequence, *, placement: str = "vmap",
+                  shard: Optional[dict] = None) -> list:
         return self.results_from_raw(
-            self.run_batch_raw(seeds, placement=placement))
+            self.run_batch_raw(seeds, placement=placement, shard=shard))

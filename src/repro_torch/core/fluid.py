@@ -9,10 +9,12 @@ the CTMC simulators (Theorem 1).
 The integrator is split into :func:`fluid_params` (per-instance parameter
 tensors) and :func:`integrate_fluid_core` (the Euler loop over them), as
 in the reference (``repro.core.fluid``, whose loop is a ``lax.scan``).
-Here the loop runs on the host over tensors on ``device`` (the card by
-default), in the ``dtype`` the caller passes (float32 by default, as the
-reference runs without ``x64``).  Tensors may carry leading batch axes:
-every per-class sum is over the last axis.
+Here the loop runs over tensors on ``device`` (the card by default), in
+the ``dtype`` the caller passes (float32 by default, as the reference
+runs without ``x64``): eagerly on the CPU, and on the card as replays of
+a CUDA graph of K steps between record points, bit for bit the eager
+loop.  Tensors may carry leading batch axes: every per-class sum is
+over the last axis.
 """
 
 from __future__ import annotations
@@ -176,26 +178,82 @@ def _revenue_rate(params: dict, ym, ys):
                                     + params["mu_s"] * ys), -1)
 
 
+#: Euler steps a CUDA graph holds at most (see :func:`_graph_steps`)
+GRAPH_STEPS = 256
+
+
+def _graph_steps(span: int) -> int:
+    """Steps one graph holds for runs of ``span`` steps between record
+    points: the largest divisor of ``span`` up to :data:`GRAPH_STEPS`
+    when it is at least a quarter of that, else :data:`GRAPH_STEPS`
+    (the remainder of each run then goes eagerly)."""
+    for k in range(min(span, GRAPH_STEPS), GRAPH_STEPS // 4 - 1, -1):
+        if span % k == 0:
+            return k
+    return GRAPH_STEPS
+
+
+def _capture(params: dict, S, kdt, adt, randomized: bool, k: int):
+    """A CUDA graph of ``k`` Euler steps on a static state buffer: each
+    replay advances ``buf`` by ``k`` steps in place, through the same
+    kernels, in the same order, as ``k`` eager steps."""
+    buf = S.clone()
+    side = torch.cuda.Stream(device=buf.device)
+    side.wait_stream(torch.cuda.current_stream(buf.device))
+    with torch.cuda.stream(side):
+        # one eager step first: lazy set-up must not happen in the capture
+        _fluid_step(params, buf.clone(), kdt, adt, randomized)
+    torch.cuda.current_stream(buf.device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        x = buf
+        for _ in range(k):
+            x = _fluid_step(params, x, kdt, adt, randomized)
+        buf.copy_(x)
+    return graph, buf
+
+
 def _integrate(params: dict, state0: tuple, dt, n_steps: int,
-               randomized: bool, record: Sequence[int]):
+               randomized: bool, record: Sequence[int],
+               graphed: Optional[bool] = None):
     """The Euler loop; stacks ``(qp, x, qd, ym, ys, revenue_rate)`` of the
     steps in ``record`` (ascending), and returns them with the last
-    state tuple."""
+    state tuple.
+
+    On the card (``graphed`` defaults to whether the state lies on a
+    CUDA device) the loop replays a CUDA graph of K Euler steps
+    (:func:`_graph_steps`) between record points and runs each run's
+    remainder eagerly: the same kernels in the same order as the eager
+    loop, so the result is bit for bit the eager one, at one graph
+    launch per K steps instead of about 60 kernel launches a step.  On
+    the CPU the loop is eager."""
     z = torch.zeros_like(params["lam"])
     kdt = torch.stack([params[k] for k in ("theta", "mu_p", "theta",
                                            "theta", "mu_m", "mu_s")],
                       -2) * dt
     adt = torch.stack([params["lam"] * dt] + [z] * 5, -2)
-    rows, want = [], iter(record)
-    nxt = next(want, None)
+    rows = []
     # inference mode skips autograd's dispatch: the loop is host-bound
     with torch.inference_mode():
         S = torch.stack(tuple(state0), -2)
-        for k in range(n_steps):
-            S = _fluid_step(params, S, kdt, adt, randomized)
-            if k == nxt:
+        if graphed is None:
+            graphed = S.device.type == "cuda"
+        ends = [k + 1 for k in record] + [n_steps]
+        spans = [b - a for a, b in zip([0] + ends[:-1], ends)]
+        graph, K = None, _graph_steps(max(spans))
+        if graphed and max(spans) >= K:
+            graph, buf = _capture(params, S, kdt, adt, randomized, K)
+        for j, span in enumerate(spans):
+            if graph is not None and span >= K:
+                buf.copy_(S)
+                for _ in range(span // K):
+                    graph.replay()
+                S = buf.clone()
+                span %= K
+            for _ in range(span):
+                S = _fluid_step(params, S, kdt, adt, randomized)
+            if j < len(record):
                 rows.append(S)
-                nxt = next(want, None)
         rows = torch.stack(rows) if rows else None
     out = None
     if rows is not None:

@@ -657,9 +657,8 @@ def solve_hetero_batch(
     one per server class -- with weights the fleet shares ``n_c / n``
     (normalised here) and ``kv_xfer`` the KV handoff seconds per prompt
     token for that class.  All instances in one batch must share the
-    same class count C.  The reference's
-    ``repro.core.hetero.FleetSpec.planner_fleet`` produces the triples from
-    a declarative fleet spec (ported with the fleet layer, ROADMAP A8).
+    same class count C.  :meth:`repro_torch.core.hetero.FleetSpec.
+    planner_fleet` produces the triples from a declarative fleet spec.
     ``device`` (the card by default) runs the solve.
     """
     instances = [tuple(cl) for cl in instances]

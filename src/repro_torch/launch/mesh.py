@@ -6,17 +6,28 @@ reference's samples exactly.  ``gpu_constants`` is the table of the CUDA
 card being timed, keyed on its name, from NVIDIA's data sheets (dense
 bf16 tensor-core rate, HBM bandwidth).  An unknown card raises: a
 measured iteration time never mixes in another part's figures.
+
+The sweep's cell placement lives here too, as in the reference: for
+simulation the unit of parallelism is a grid cell (one (mix, policy, n,
+seed) replication), and the batch engines split their cell batch over a
+1-D list of devices (:func:`cells_mesh`, the reference's ``"cells"``
+mesh axis).  :func:`shard_cells` is the raw primitive over that list
+(strict -- the grid-level padding and tiling live in
+:mod:`repro_torch.sweep.sharded`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import subprocess
-from typing import Optional, Union
+from typing import Callable, Optional, Sequence, Union
 
 import torch
+from torch.utils import _pytree as pytree
 
-__all__ = ["CPU_STAND_IN", "GPU_TABLES", "gpu_constants", "gpu_table",
-           "hw_record", "v5e_constants"]
+__all__ = ["CPU_STAND_IN", "GPU_TABLES", "cells_mesh", "gpu_constants",
+           "gpu_table", "hw_record", "shard_cells", "shard_cells_fn",
+           "v5e_constants"]
 
 
 def v5e_constants() -> dict:
@@ -90,3 +101,84 @@ def hw_record(device: torch.device) -> dict:
     name = torch.cuda.get_device_properties(index).name
     return {**gpu_constants(index), "table": gpu_table(name)[0],
             "device": name, "power_limit": _power_limit(index) or "unknown"}
+
+
+def cells_mesh(n_devices: Optional[int] = None) -> list:
+    """The 1-D list of CUDA devices a cell batch is split over.
+
+    ``n_devices`` defaults to every visible card; pass a smaller count to
+    leave cards free.  Raises when no CUDA device is visible: a host
+    split takes an explicit list (e.g. ``["cpu"] * k``, as the tests do).
+    """
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "cells_mesh: no CUDA device is visible; pass a device list "
+            "(e.g. ['cpu'] * k) to split a batch on the host")
+    avail = torch.cuda.device_count()
+    d = avail if n_devices is None else int(n_devices)
+    if not 1 <= d <= avail:
+        raise ValueError(f"cells_mesh needs 1..{avail} devices, got {d}")
+    return [torch.device("cuda", i) for i in range(d)]
+
+
+def _to(tree, dev: torch.device):
+    return pytree.tree_map(
+        lambda v: v.to(dev) if isinstance(v, torch.Tensor) else v, tree)
+
+
+def shard_cells_fn(kernel: Callable, *, devices: Sequence) -> Callable:
+    """The cell-split batch executable for ``kernel``.
+
+    ``kernel(replicated, batched)`` computes a whole batch: every leaf
+    of ``batched`` and of the returned pytree has the leading cell axis.
+    The returned callable ``fn(replicated, batched)`` splits that axis
+    evenly over ``devices``, in order: device j gets cells
+    ``[j * per, (j + 1) * per)`` and its own copy of ``replicated``,
+    runs ``kernel`` on them under its own CUDA context, and the outputs
+    come back to the host (CPU tensors) concatenated in cell order.
+    Devices are driven one after another from the calling thread.
+    Strict by design: the cell count must divide by the device count
+    (ragged grids are padded and tiled one layer up, in
+    :mod:`repro_torch.sweep.sharded`).  Cells are independent in every
+    kernel the port splits this way (``ctmc_scan``: a warp a
+    replication; the engine's step: per-replication rows), which is
+    what makes the result bitwise identical to one batch on one device.
+    """
+    devs = [torch.device(d) for d in devices]
+    if not devs:
+        raise ValueError("shard_cells needs >= 1 device")
+
+    def fn(replicated, batched):
+        leaves = pytree.tree_leaves(batched)
+        if not leaves:
+            raise ValueError("shard_cells got an empty batched pytree")
+        n = int(leaves[0].shape[0])
+        d = len(devs)
+        if n % d != 0:
+            raise ValueError(
+                f"shard_cells is strict: {n} cells do not divide over "
+                f"{d} devices (pad via repro_torch.sweep.sharded)")
+        per = n // d
+        parts = []
+        for j, dev in enumerate(devs):
+            part = pytree.tree_map(lambda v: v[j * per:(j + 1) * per],
+                                   batched)
+            ctx = (torch.cuda.device(dev) if dev.type == "cuda"
+                   else contextlib.nullcontext())
+            with ctx:
+                out = kernel(_to(replicated, dev), _to(part, dev))
+                parts.append(_to(out, torch.device("cpu")))
+        if d == 1:
+            return parts[0]
+        flat = [pytree.tree_flatten(p)[0] for p in parts]
+        spec = pytree.tree_flatten(parts[0])[1]
+        return pytree.tree_unflatten(
+            [torch.cat(xs, 0) for xs in zip(*flat)], spec)
+
+    return fn
+
+
+def shard_cells(kernel: Callable, replicated, batched, *,
+                devices: Sequence):
+    """One-shot convenience wrapper over :func:`shard_cells_fn`."""
+    return shard_cells_fn(kernel, devices=devices)(replicated, batched)

@@ -62,9 +62,9 @@ threefry, so randomized policies match the reference statistically.
 
 Not supported (as in the reference): server failures, stragglers, the
 online controller and ``record_queues_every``.  ``placement="shard_map"``
-comes with the sweep layer (ROADMAP A8) and raises until then.  Streamed
-replay over a compacted working set lives in
-:mod:`repro_torch.serving.engine_stream`.
+splits the replication batch over devices (:mod:`repro_torch.sweep.
+sharded`), bitwise identical to one batch.  Streamed replay over a
+compacted working set lives in :mod:`repro_torch.serving.engine_stream`.
 """
 
 from __future__ import annotations
@@ -1023,6 +1023,7 @@ class _Blocks:
         return body
 
     def _capture(self, params, keys, carry, i, aux):
+        run.graph_captures += 1
         bufs = {"params": {k: v.clone() for k, v in params.items()},
                 "carry": {k: v.clone() for k, v in carry.items()},
                 "aux": {k: v.clone() for k, v in aux.items()},
@@ -1175,7 +1176,7 @@ def _as_keys(keys):
 
 
 def run(params, keys, *, placement: str = "vmap", multi: bool = False,
-        segment=None, **statics):
+        segment=None, shard: Optional[dict] = None, **statics):
     """Unified entry for every way this engine executes (the reference's
     facade):
 
@@ -1183,8 +1184,10 @@ def run(params, keys, *, placement: str = "vmap", multi: bool = False,
       key);
     * ``placement="vmap"``    a replication batch (``keys`` a
       sequence/stack), the port's batched step;
-    * ``placement="shard_map"`` comes with the sweep layer (ROADMAP A8)
-      and raises until then;
+    * ``placement="shard_map"`` the same batch split over the devices'
+      cell list (bitwise identical; the leaves come back as CPU tensors;
+      ``shard`` forwards ``devices`` and the tiling kwargs to
+      :func:`repro_torch.sweep.sharded.run_sharded`);
     * ``multi=True``          the leading *instance* axis of ``params``
       rides with ``keys``;
     * ``segment=(carry, i0, budget)`` the streamed-replay segment mode
@@ -1205,16 +1208,27 @@ def run(params, keys, *, placement: str = "vmap", multi: bool = False,
         return (run_engine_multi if multi
                 else run_engine_batch)(params, keys, **statics)
     if placement == "shard_map":
-        raise NotImplementedError(
-            "placement='shard_map' needs sweep/sharded.py, which is not "
-            "ported yet (ROADMAP A8); use 'vmap'")
+        from repro_torch.sweep.sharded import run_sharded
+
+        st = dict(statics)
+        if multi:
+            raw, _ = run_sharded(
+                lambda _rep, pk: run_engine_multi(pk[0], pk[1], **st),
+                None, (params, keys), **(shard or {}))
+        else:
+            raw, _ = run_sharded(
+                lambda p, k: run_engine_batch(p, k, **st),
+                params, keys, **(shard or {}))
+        return raw
     raise ValueError(f"unknown placement {placement!r} (expected "
                      f"single|vmap|shard_map)")
 
 
 #: CUDA-graph replays of the loop's blocks, all calls together (the
-#: loop's launches on the card; the CPU route replays nothing)
+#: loop's launches on the card; the CPU route replays nothing), and the
+#: graphs captured for them (one per statics, shapes and device)
 run.graph_replays = 0
+run.graph_captures = 0
 
 
 def _host(raw: dict) -> dict:
@@ -1421,12 +1435,17 @@ class ClusterEngineJAX:
         return run(self.params, self._key(seed), placement="single",
                    **self._static)
 
-    def run_batch_raw(self, seeds: Sequence, *,
-                      placement: str = "vmap") -> dict:
+    def run_batch_raw(self, seeds: Sequence, *, placement: str = "vmap",
+                      shard: Optional[dict] = None) -> dict:
         """All replications in one batch; tensors gain a leading
-        replication axis.  ``placement`` as in :func:`run`."""
+        replication axis.  ``placement``/``shard`` as in :func:`run`,
+        except that ``"single"`` runs one replication per seed and
+        stacks them."""
+        if placement == "single":
+            outs = [self.run_raw(s) for s in seeds]
+            return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
         return run(self.params, [self._key(s) for s in seeds],
-                   placement=placement, **self._static)
+                   placement=placement, shard=shard, **self._static)
 
     # -- EngineMetrics.summary() interface ---------------------------------
     def _summary(self, o: dict) -> dict:
@@ -1531,6 +1550,7 @@ class ClusterEngineJAX:
     def run(self, seed=0) -> dict:
         return self._summary(_host(self.run_raw(seed)))
 
-    def run_batch(self, seeds: Sequence, *, placement: str = "vmap") -> list:
+    def run_batch(self, seeds: Sequence, *, placement: str = "vmap",
+                  shard: Optional[dict] = None) -> list:
         return self.summaries_from_raw(
-            self.run_batch_raw(seeds, placement=placement))
+            self.run_batch_raw(seeds, placement=placement, shard=shard))

@@ -1,19 +1,50 @@
-"""Host-side observability: probes for the Python engine and the shared
-timing helper.  Trace export and run manifests are ROADMAP A1/A8."""
+"""Observability of the port (the reference's ``repro.telemetry``).
 
+* :mod:`repro_torch.telemetry.probes` -- fixed-shape state probes
+  threaded through the engines' carries, the pure-Python
+  :class:`PyProbes` twin and the host-side :func:`extract_probes`.
+* :mod:`repro_torch.telemetry.trace` -- Chrome-trace/Perfetto
+  ``trace_event`` JSON export of request lifecycles and replan epochs.
+* :mod:`repro_torch.telemetry.manifest` -- schema-versioned ``RunRecord``
+  JSONL provenance (torch, CUDA and the card in place of the
+  reference's JAX version).
+* :mod:`repro_torch.telemetry.timing` -- the host and CUDA timers.
+
+``python -m repro_torch.telemetry`` renders trajectory/SLI reports and
+validates emitted trace/manifest files.
+"""
+
+from .manifest import (MANIFEST_SCHEMA_VERSION, append_record,
+                       default_manifest_path, payload_digest, read_records,
+                       run_record, validate_record)
 from .probes import (PROBES, ProbeSpec, PyProbes, extract_probes,
                      hist_attainment, hist_edges, hist_percentile,
                      resolve_probe_spec)
 from .timing import timeit_median
+from .trace import (TRACE_SCHEMA_VERSION, lifecycle_events, replan_events,
+                    trace_payload, validate_trace, write_trace)
 
 __all__ = [
+    "MANIFEST_SCHEMA_VERSION",
     "PROBES",
     "ProbeSpec",
     "PyProbes",
+    "TRACE_SCHEMA_VERSION",
+    "append_record",
+    "default_manifest_path",
     "extract_probes",
     "hist_attainment",
     "hist_edges",
     "hist_percentile",
+    "lifecycle_events",
+    "payload_digest",
+    "read_records",
+    "replan_events",
     "resolve_probe_spec",
+    "run_record",
     "timeit_median",
+    "trace_payload",
+    "validate_record",
+    "validate_trace",
+    "write_trace",
 ]

@@ -10,16 +10,18 @@ Layers:
 * :mod:`repro_torch.workloads.batch` -- batched (seeds x scenarios) trace
   generation on the device and the chunked :class:`ScenarioStream`
   (import it from its module).
+* :mod:`repro_torch.workloads.closed_loop` -- OnlineController wired
+  into the engine replay, compared against static/heuristic baselines.
 
-The closed-loop control harness (``closed_loop``: ``ClosedLoopConfig``,
-``VARIANTS``, ``run_closed_loop``, ``compare_policies``,
-``plans_for_scenarios``) and the ``run`` CLI come with the sweep and
-control layers (ROADMAP A8).
+CLI: ``python -m repro_torch.workloads.run`` (catalog listing,
+generation stats, closed-loop comparisons).
 """
 
 from .arrivals import (ArrivalProcess, MMPPArrivals,
                        PiecewiseConstantArrivals, PoissonArrivals, diurnal,
                        flash_crowd, rate_shift)
+from .closed_loop import (VARIANTS, ClosedLoopConfig, compare_policies,
+                          plans_for_scenarios, run_closed_loop)
 from .scenarios import (CapacityEvent, EVENT_KINDS, Scenario, ScenarioError,
                         get_scenario, list_scenarios, register_scenario)
 
@@ -38,4 +40,9 @@ __all__ = [
     "register_scenario",
     "get_scenario",
     "list_scenarios",
+    "ClosedLoopConfig",
+    "VARIANTS",
+    "run_closed_loop",
+    "compare_policies",
+    "plans_for_scenarios",
 ]

@@ -285,12 +285,19 @@ def test_telemetry_shapes_and_invariance():
 
 def test_float32_default_and_shard_map_raises():
     """float32 is the default dtype, as the reference runs without x64;
-    the sharded placement waits for the sweep layer (ROADMAP A8)."""
+    the sharded placement (the sweep layer, ROADMAP A8) splits the batch
+    over the CUDA cards and raises on a host without one unless it is
+    given a device list, over which it equals the vmap batch."""
     sim = _port("baseline_vllm", n=10, horizon=5.0, warmup=1.0)
     raw = sim.run_batch_raw([0, 1])
     assert raw["t"].dtype == torch.float32 and bool((raw["t"] == 5.0).all())
-    with pytest.raises(NotImplementedError, match="A8"):
-        sim.run_batch_raw([0], placement="shard_map")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            sim.run_batch_raw([0], placement="shard_map")
+    got = sim.run_batch_raw([0, 1], placement="shard_map",
+                            shard={"devices": ["cpu"] * 2})
+    for k in raw:
+        assert torch.equal(got[k], raw[k]), k
 
 
 # ------------------------------------------------------------ the generator

@@ -387,9 +387,18 @@ def test_refusals_match_reference(what):
 
 
 def test_shard_map_placement_names_a8():
+    """The sweep layer (ROADMAP A8) gave the engine its shard_map
+    placement: over host devices it is the vmap batch bit for bit; with
+    no device list it needs the CUDA cards and raises without one."""
     port = _engine("repro_torch", "vllm")
-    with pytest.raises(NotImplementedError, match="A8"):
-        port.run_batch_raw([0, 1], placement="shard_map")
+    want = port.run_batch_raw([0, 1, 2])
+    got = port.run_batch_raw([0, 1, 2], placement="shard_map",
+                             shard={"devices": ["cpu"] * 2})
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            port.run_batch_raw([0, 1], placement="shard_map")
     with pytest.raises(ValueError, match="placement"):
         port.run_batch_raw([0], placement="pmap")
 

@@ -730,3 +730,111 @@ def test_engine_generate_batch_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_array_equal(a["cls"], b["cls"])
     v = b["valid"]
     np.testing.assert_allclose(a["t"][v], b["t"][v], rtol=1e-5)
+
+
+# -- the sweep, fleet and closed-loop layers (ROADMAP A8) ---------------------
+
+
+@pytest.mark.parametrize("randomized", [False, True])
+@pytest.mark.parametrize("batched", [False, True])
+def test_fluid_graphed_loop_equals_the_eager_loop(cuda, randomized, batched):
+    """The Euler loop replayed as CUDA graphs of K steps is the eager loop
+    bit for bit on the card: final state and recorded rows, with runs
+    between record points that are and are not multiples of K."""
+    from repro_torch.core import fluid as F
+    from repro_torch.core.planning import solve_bundled_lp
+    from repro_torch.core.types import (Pricing, ServicePrimitives,
+                                        WorkloadClass)
+
+    classes = [WorkloadClass("d", 300, 1000, 0.5, 0.1),
+               WorkloadClass("p", 3000, 400, 0.5, 0.1)]
+    prim, pricing = ServicePrimitives(), Pricing()
+    plan = solve_bundled_lp(classes, prim, pricing)
+    p = F.fluid_params(classes, prim, pricing, plan, randomized,
+                       device=cuda)
+    if batched:
+        p = {k: torch.stack([v, v * 1.01]) for k, v in p.items()}
+    z = torch.zeros_like(p["lam"])
+    for record in ((), tuple(range(0, 3000, 600)), (5, 700, 2999)):
+        eager = F._integrate(p, (z,) * 6, 2e-3, 3000, randomized, record,
+                             graphed=False)
+        graph = F._integrate(p, (z,) * 6, 2e-3, 3000, randomized, record,
+                             graphed=True)
+        for a, b in zip(eager[1], graph[1]):
+            assert torch.equal(a, b)
+        if record:
+            for a, b in zip(eager[0], graph[0]):
+                assert torch.equal(a, b)
+
+
+def test_fluid_grid_on_the_card_equals_solo_runs(cuda):
+    """The fluid evaluator's batched grid equals solo runs within 1e-6."""
+    from repro_torch.core.fluid import fluid_final_state, fluid_params
+    from repro_torch.sweep import SweepSpec, run_sweep
+    from repro_torch.sweep.evaluators import MixContext
+    from repro_torch.sweep.fluid_batch import fluid_policy_plan
+    from repro_torch.sweep.run import default_mix
+
+    mix = default_mix()
+    spec = SweepSpec(name="f", evaluator="fluid",
+                     policies=("gate_and_route", "sli_aware"),
+                     n_servers=(1,), mixes=(mix,), horizon=6.0)
+    res = run_sweep(spec)
+    ctx = MixContext(mix, spec)
+    for c in res.cells:
+        kind, rnd = fluid_policy_plan(c.policy)
+        p = fluid_params(ctx.classes, ctx.prim, ctx.pricing, ctx.plan(kind),
+                         randomized_router=rnd)
+        z = torch.zeros_like(p["lam"])
+        _, rev = fluid_final_state(p, (z,) * 6, 2e-3, n_steps=3000,
+                                   randomized=rnd)
+        assert c.metrics["revenue_rate"] == pytest.approx(float(rev),
+                                                          rel=1e-6)
+
+
+@pytest.mark.parametrize("evaluator", ["ctmc_jax", "engine_jax"])
+def test_sweep_placements_on_the_card_are_bitwise(cuda, evaluator):
+    """single / vmap / shard_map (one card, tiles of 2 and a ragged
+    last tile) give the same cells bit for bit."""
+    from repro_torch.sweep import MixSpec, SweepSpec, run_sweep
+    from repro_torch.sweep.run import default_mix
+
+    if evaluator == "ctmc_jax":
+        kw = dict(policies=("gate_and_route", "sli_aware"),
+                  n_servers=(10,), mixes=(default_mix(),), horizon=5.0,
+                  warmup=1.0)
+    else:
+        kw = dict(policies=("gate_and_route", "vllm"), n_servers=(8,),
+                  mixes=(MixSpec(name="tr", trace=dict(
+                      horizon=5.0, seed=1, compression=0.05)),),
+                  horizon=5.0, warmup=1.0)
+    base = SweepSpec(name="p", evaluator=evaluator, n_seeds=5, **kw)
+    want = [c.metrics for c in run_sweep(base).cells]
+    for extra in ({"placement": "single"},
+                  {"placement": "shard_map"},
+                  {"placement": "shard_map",
+                   "shard": {"max_cells_per_device": 2}}):
+        spec = SweepSpec.from_dict(dict(base.to_dict(), extra=extra))
+        assert [c.metrics for c in run_sweep(spec).cells] == want, extra
+
+
+def test_sweep_engine_jax_on_the_card_matches_the_cpu(cuda):
+    """An engine_jax sweep cell on the card against the CPU route:
+    discrete metrics exactly, the rest within ENGINE_RTOL."""
+    from repro_torch.sweep import MixSpec, SweepSpec, run_sweep
+
+    spec = SweepSpec(name="e", evaluator="engine_jax",
+                     policies=("gate_and_route",), n_servers=(8,),
+                     n_seeds=3, mixes=(MixSpec(
+                         name="azure_2023", scenario="azure_2023",
+                         trace=dict(horizon=60.0)),), horizon=60.0,
+                     extra={"engine_jax": {"fastforward": True}})
+    card = run_sweep(spec).cells
+    cpu = run_sweep(spec, device="cpu").cells
+    for a, b in zip(card, cpu):
+        for k, v in b.metrics.items():
+            if k in ("completions", "arrivals", "abandons", "n_iters",
+                     "n_events", "budget_exhausted"):
+                assert a.metrics[k] == v, k
+            elif np.isfinite(v):
+                assert a.metrics[k] == pytest.approx(v, rel=ENGINE_RTOL), k
