@@ -145,6 +145,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the card, and the adaptive run's Chrome trace valid.  Prints each
    item's wall, (a)'s events/s and ns an event, (e)'s loop steps and
    graph captures, with the card's name and power limit.
+10. the rest of the data plane (``[a10]`` lines) -- prefix-LM, the
+   encoder with cross-attention, MLA and the capacity-dispatch MoE, at
+   the published widths of paligemma-3b, whisper-base, grok-1-314b (2 of
+   its 64 layers) and deepseek-v3-671b (4 of 61: 3 dense, 1 MoE), the
+   depth cut only where one card forces it, weights drawn on the card in
+   the config's ``param_dtype`` (bf16 but for whisper's f32), one model
+   at a time.  (a) B1 and B2 against their plain versions, as in phase 3,
+   at the shapes these models give them: B1 at B=4 S=256 for paligemma
+   (H=8 KV=1 D=256, bf16 and f32), grok-1 (H=48 KV=8 D=128) and whisper
+   (H=KV=8 D=64); B2 on its tensor-core route at paligemma's B=4 S=768
+   with ``prefix_len=256`` (SDPA with the explicit mask for the library
+   time), grok-1's B=4 S=2048 and whisper's B=4 S=448.  (b) paligemma
+   (text only, as the engine serves it), grok-1, deepseek-v3 and
+   recurrentgemma-2b through ``serve`` (4 servers, batch cap 4, chunk
+   16, the two classes, f32 caches) with 8 requests a model where phases
+   5 and 6 send 24: every request must complete and B1 launch once per
+   attention layer per iteration; prints the host wall per mixed and
+   solo iteration.  (c) a whole-prompt ``make_prefill_step(kernel_impl=
+   "pallas")`` with bf16 caches and 8 ``forward_decode`` steps:
+   paligemma B=4 over 256 stub patches and 512 tokens (B2 once per layer
+   on tensor cores with ``prefix_len=256``), whisper B=4 over its 1500
+   stub frames and 448 tokens (the encoder's time printed apart),
+   grok-1 and deepseek-v3 at B=4 S=2048 (the decodes' device ms by CUDA
+   events); B1 once per attention layer per decode, caches and logits
+   finite.  Prints each model's parameters, the bytes held and the peak
+   allocated.  (d) reduced paligemma (with ``prefix_embeds``), whisper
+   (with ``enc_frames``), deepseek-v3 and grok-1 on the card against the
+   CPU on the same weights within 1e-4, over a whole prefill, two
+   continuation chunks and 8 decodes.  Phase 10's B1 and B2 launches
+   join the kernels line's.
 
 It then prints the per-kernel JSON line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -288,6 +318,21 @@ CLI_EXACT = ("completions", "arrivals", "abandons", "budget_exhausted",
 # hindsight-static plan (artifacts/bench/scenarios.json)
 CL_SCENARIO, CL_N = "rate_shift", 8
 CL_VARIANTS = ("adaptive", "static", "static_cold", "vllm")
+# phase 10: the archs of the rest of the data plane at their published
+# widths, in this order; depth cut only where one card forces it (layers
+# kept: deepseek-v3's first 3 dense and 1 MoE, grok-1's first 2)
+A10_ARCHS = ("paligemma-3b", "whisper-base", "grok-1-314b",
+             "deepseek-v3-671b", "recurrentgemma-2b")
+A10_DEPTH = {"deepseek-v3-671b": 4, "grok-1-314b": 2}
+# served through serve (whisper cannot be, ROADMAP C-ref7), 8 requests a
+# model where phases 5 and 6 send 24
+A10_SERVE = ("paligemma-3b", "grok-1-314b", "deepseek-v3-671b",
+             "recurrentgemma-2b")
+A10_REQUESTS = 8
+# the whole-prompt prefill (B, text tokens) and the decodes after it
+A10_WHOLE = {"paligemma-3b": (4, 512), "whisper-base": (4, 448),
+             "grok-1-314b": (4, 2048), "deepseek-v3-671b": (4, 2048)}
+A10_STEPS = 8
 CL_LEAD = 5.374133740330568
 
 
@@ -453,11 +498,87 @@ def _sdpa(torch, q, k, v, **kw):
                                                   **kw)
 
 
-def check_kernels(torch):
+def _decode_row(torch, ms, n_sm, dname, desc, args, kw, kv_read):
+    """One B1 check: kernel against plain, with times and the bound."""
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention, decode_attention_plain, decode_plan)
+
+    q, k, v, kl = args
+    el = torch.finfo(q.dtype).bits // 8
+    H, D, KV = q.shape[2], q.shape[3], k.shape[2]
+    out = decode_attention(q, k, v, kl, **kw)
+    ref = decode_attention_plain(q, k, v, kl, **kw)
+    torch.cuda.synchronize()
+    err = _check(torch, "decode_attention", out, ref, dname, desc)
+    B = q.shape[0]
+    bytes_ = (2 * B * H * D + 2 * kv_read * KV * D) * el + 4 * B
+    if "k_positions" in kw:
+        bytes_ += 4 * k.shape[0] * k.shape[1] + 4 * B
+    flops = 4.0 * kv_read * H * D
+    lib = None
+    if not kw and bool((kl == k.shape[1]).all()):
+        lib = ms(_sdpa(torch, q, k, v))
+    plan = decode_plan(B, k.shape[1], H, KV, D, el, n_sm)
+    row = dict(shape=desc, dtype=dname, max_abs_err=err, plan=plan,
+               route=f"cluster={plan.n_split} split_len={plan.split_len} "
+               f"kw={plan.kw} blocks={plan.blocks}",
+               ms=ms(lambda: decode_attention(q, k, v, kl, **kw)),
+               plain_ms=ms(lambda: decode_attention_plain(q, k, v, kl, **kw)),
+               library_ms=lib)
+    row["bound_ms"], row["bound_by"] = _bound(dname, bytes_, flops)
+    return row
+
+
+def _prefill_row(torch, ms, dname, desc, args, kw):
+    """One B2 check: the call must take its dtype's route (bf16 ``tc``,
+    f32 ``fp32``); kernel against plain, with times and the bound."""
     from repro_torch.kernels.prefill_attention.ops import (
         prefill_attention, prefill_attention_plain)
+
+    q, k, v = args
+    el = torch.finfo(q.dtype).bits // 8
+    route = "tc" if q.dtype == torch.bfloat16 else "fp32"
+    H, D, KV = q.shape[2], q.shape[3], k.shape[2]
+    n_route = getattr(prefill_attention, f"launches_{route}")
+    out = prefill_attention(q, k, v, **kw)
+    if getattr(prefill_attention, f"launches_{route}") != n_route + 1:
+        raise AssertionError(f"prefill_attention {dname} {desc}: did not "
+                             f"launch the {route} route")
+    ref = prefill_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = _check(torch, "prefill_attention", out, ref, dname, desc)
+    B, S = q.shape[:2]
+    pairs = B * _pairs(torch, S, kw.get("causal", True), kw.get("window"),
+                       kw.get("prefix_len"))
+    bytes_ = B * (2 * S * H * D + 2 * S * KV * D) * el
+    flops = 4.0 * pairs * H * D
+    lib = None
+    if set(kw) <= {"causal"}:
+        lib = ms(_sdpa(torch, q, k, v, is_causal=kw.get("causal", True)))
+    elif set(kw) == {"prefix_len"}:  # SDPA with the prefix-LM mask
+        kp = torch.arange(S, device=q.device)
+        mask = (kp[None, :] <= kp[:, None]) | (kp[None, :] < kw["prefix_len"])
+        lib = ms(_sdpa(torch, q, k, v, attn_mask=mask))
+    row = dict(shape=desc, dtype=dname, max_abs_err=err, route=route,
+               ms=ms(lambda: prefill_attention(q, k, v, **kw)),
+               plain_ms=ms(lambda: prefill_attention_plain(q, k, v, **kw)),
+               library_ms=lib)
+    row["bound_ms"], row["bound_by"] = _bound(dname, bytes_, flops)
+    return row
+
+
+def _print_rows(rows, tag="kernel"):
+    for name, rs in rows.items():
+        for r in rs:
+            print(f"[{tag}] {name} {r['dtype']} {r['shape']} "
+                  f"({r['route']}): max_abs_err={r['max_abs_err']!r} "
+                  f"(atol, rtol {TOL[r['dtype']]}) ms={r['ms']!r} "
+                  f"plain_ms={r['plain_ms']!r} "
+                  f"library_ms={r['library_ms']!r} bound_ms={r['bound_ms']!r} "
+                  f"({r['bound_by']})")
+
+
+def check_kernels(torch):
     from repro_torch.telemetry.timing import timeit_median_cuda
 
     def ms(fn):
@@ -468,71 +589,13 @@ def check_kernels(torch):
     rows = {"decode_attention": [], "prefill_attention": []}
     for dt in (torch.bfloat16, torch.float32):
         dname = str(dt).split(".")[-1]
-        el = torch.finfo(dt).bits // 8
-
-        for desc, (q, k, v, kl), kw, kv_read in _decode_cases(torch, gen,
-                                                              dt):
-            H, D, KV = q.shape[2], q.shape[3], k.shape[2]
-            out = decode_attention(q, k, v, kl, **kw)
-            ref = decode_attention_plain(q, k, v, kl, **kw)
-            torch.cuda.synchronize()
-            err = _check(torch, "decode_attention", out, ref, dname, desc)
-            B = q.shape[0]
-            bytes_ = (2 * B * H * D + 2 * kv_read * KV * D) * el + 4 * B
-            if "k_positions" in kw:
-                bytes_ += 4 * k.shape[0] * k.shape[1] + 4 * B
-            flops = 4.0 * kv_read * H * D
-            lib = None
-            if not kw and bool((kl == k.shape[1]).all()):
-                lib = ms(_sdpa(torch, q, k, v))
-            plan = decode_plan(B, k.shape[1], H, KV, D, el, n_sm)
-            row = dict(shape=desc, dtype=dname, max_abs_err=err,
-                       route=f"cluster={plan.n_split} "
-                       f"split_len={plan.split_len} kw={plan.kw} "
-                       f"blocks={plan.blocks}",
-                       ms=ms(lambda: decode_attention(q, k, v, kl, **kw)),
-                       plain_ms=ms(lambda: decode_attention_plain(
-                           q, k, v, kl, **kw)),
-                       library_ms=lib)
-            row["bound_ms"], row["bound_by"] = _bound(dname, bytes_, flops)
-            rows["decode_attention"].append(row)
-
-        route = "tc" if dt == torch.bfloat16 else "fp32"
-        for desc, (q, k, v), kw in _prefill_cases(torch, gen, dt):
-            H, D, KV = q.shape[2], q.shape[3], k.shape[2]
-            n_route = getattr(prefill_attention, f"launches_{route}")
-            out = prefill_attention(q, k, v, **kw)
-            if getattr(prefill_attention, f"launches_{route}") != n_route + 1:
-                raise AssertionError(f"prefill_attention {dname} {desc}: "
-                                     f"did not launch the {route} route")
-            ref = prefill_attention_plain(q, k, v, **kw)
-            torch.cuda.synchronize()
-            err = _check(torch, "prefill_attention", out, ref, dname, desc)
-            B, S = q.shape[:2]
-            pairs = B * _pairs(torch, S, kw.get("causal", True),
-                               kw.get("window"), kw.get("prefix_len"))
-            bytes_ = B * (2 * S * H * D + 2 * S * KV * D) * el
-            flops = 4.0 * pairs * H * D
-            lib = None
-            if set(kw) <= {"causal"}:
-                lib = ms(_sdpa(torch, q, k, v,
-                               is_causal=kw.get("causal", True)))
-            row = dict(shape=desc, dtype=dname, max_abs_err=err, route=route,
-                       ms=ms(lambda: prefill_attention(q, k, v, **kw)),
-                       plain_ms=ms(lambda: prefill_attention_plain(
-                           q, k, v, **kw)),
-                       library_ms=lib)
-            row["bound_ms"], row["bound_by"] = _bound(dname, bytes_, flops)
-            rows["prefill_attention"].append(row)
-
-    for name, rs in rows.items():
-        for r in rs:
-            print(f"[kernel] {name} {r['dtype']} {r['shape']} "
-                  f"({r['route']}): max_abs_err={r['max_abs_err']!r} "
-                  f"(atol, rtol {TOL[r['dtype']]}) ms={r['ms']!r} "
-                  f"plain_ms={r['plain_ms']!r} "
-                  f"library_ms={r['library_ms']!r} bound_ms={r['bound_ms']!r} "
-                  f"({r['bound_by']})")
+        for desc, args, kw, kv_read in _decode_cases(torch, gen, dt):
+            rows["decode_attention"].append(
+                _decode_row(torch, ms, n_sm, dname, desc, args, kw, kv_read))
+        for desc, args, kw in _prefill_cases(torch, gen, dt):
+            rows["prefill_attention"].append(
+                _prefill_row(torch, ms, dname, desc, args, kw))
+    _print_rows(rows)
     return rows
 
 
@@ -699,6 +762,7 @@ def _zero_counts():
     prefill_attention.launches_tc = prefill_attention.launches_fp32 = 0
     ssd_scan.launches = 0
     decode_attention.routes.clear()
+    prefill_attention.prefix_lens.clear()
 
 
 def _counts():
@@ -722,19 +786,22 @@ def _b1_routes():
                                  key=lambda kv: -kv[1]))
 
 
-def run_serving(torch, arch):
-    """The serving path at full width: ``arch`` through ``serve``.
+def run_serving(torch, arch, *, cfg=None, n_req=24, dtype=None):
+    """The serving path at full width: ``arch`` (or ``cfg``, a depth cut
+    of it) through ``serve``, ``n_req`` requests over weights drawn in
+    ``dtype`` (f32 by default).
 
-    ``torch.profiler`` records iterations ``PROFILE_FROM`` to
-    ``PROFILE_FROM + PROFILE_N - 1`` of this same run (the first are
-    warm-up; all of them would be millions of events).  Each engine step
-    in that window is a range, ``iteration.mixed`` or ``iteration.solo``:
-    the device time of the kernels inside a kind's ranges, over the
-    ranges' host wall, is the card's busy share there.  The run's host
-    wall per iteration (``iter_wall``) is printed for the iterations
-    outside the window, which neither the profiler nor its start and
-    stop slow.  Returns the metrics and the run's kernel launches (the
-    counts are zeroed just before)."""
+    ``torch.profiler`` records ``PROFILE_N`` iterations of this same run
+    from iteration ``PROFILE_FROM * n_req // 24`` (the first are warm-up;
+    all of them would be millions of events): 150-209 of 506 at 24
+    requests, 50-109 of 180 at 8.  Each engine step in that window is a
+    range, ``iteration.mixed`` or ``iteration.solo``: the device time of
+    the kernels inside a kind's ranges, over the ranges' host wall, is
+    the card's busy share there.  The run's host wall per iteration
+    (``iter_wall``) is printed for the iterations outside the window,
+    which neither the profiler nor its start and stop slow.  Returns the
+    metrics and the run's kernel launches (the counts are zeroed just
+    before)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -742,25 +809,27 @@ def run_serving(torch, arch):
     from repro_torch.launch.serve import serve
     from repro_torch.serving.engine import ServerEngine
 
-    cfg = get_config(arch)
-    n_req = 24
+    cfg = cfg or get_config(arch)
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    window = {"modes": [], "wall": 0.0}
+    window = {"modes": [], "wall": 0.0, "open": False}
     engine_step = ServerEngine.step
+    start = PROFILE_FROM * n_req // 24
 
     def step(self):  # the engine's step, with the profiler's window
-        if len(window["modes"]) == PROFILE_FROM:
+        if len(window["modes"]) == start:
             torch.cuda.synchronize()
             prof.start()
+            window["open"] = True
             window["wall"] = -time.perf_counter()
         mode = "mixed" if self.has_prefill else "solo"
         with record_function(f"iteration.{mode}"):
             res = engine_step(self)
         window["modes"].append(mode)
-        if len(window["modes"]) == PROFILE_FROM + PROFILE_N:
+        if len(window["modes"]) == start + PROFILE_N:
             torch.cuda.synchronize()
             window["wall"] += time.perf_counter()
             prof.stop()
+            window["open"] = False
         return res
 
     _zero_counts()
@@ -768,14 +837,24 @@ def run_serving(torch, arch):
     try:
         t0 = time.perf_counter()
         m = serve(cfg, servers=4, requests=n_req, batch_cap=4, chunk=16,
-                  rate=2.0, seed=0, device="cuda")
+                  rate=2.0, seed=0, device="cuda",
+                  dtype=dtype or torch.float32)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
         ServerEngine.step = engine_step
+        if window["open"]:  # never leave the tracer running
+            prof.stop()
+    modes = window["modes"]
+    if len(modes) < start + PROFILE_N:
+        raise AssertionError(f"serving {arch}: the run ended after "
+                             f"{len(modes)} iterations, inside the profiled "
+                             f"window {start}-{start + PROFILE_N - 1}")
     launches = _counts()
     mixer = (f"H={cfg.attn.n_heads} KV={cfg.attn.n_kv_heads} "
              f"D={cfg.attn.head_dim}" if cfg.attn is not None else
+             f"MLA H={cfg.mla.n_heads} r={cfg.mla.kv_lora_rank}"
+             if cfg.mla is not None else
              f"N={cfg.ssm.d_state} P={cfg.ssm.head_dim}")
     print(f"[serve] {arch} (layers={cfg.n_layers} d_model={cfg.d_model} "
           f"vocab={cfg.vocab_size} {mixer}) served in {wall:.1f} s; "
@@ -783,11 +862,9 @@ def run_serving(torch, arch):
     if launches["decode_attention"]:
         print(f"[serve] {arch} decode_attention routes: {_b1_routes()}")
     print(f"[serve] summary {json.dumps(m.summary(), sort_keys=True)}")
-    modes = window["modes"]
     for mode, ts in m.iter_wall.items():
         # this mode's iterations inside the profiled window
-        skip = {modes[:i].count(mode) for i in
-                range(PROFILE_FROM, PROFILE_FROM + PROFILE_N)
+        skip = {modes[:i].count(mode) for i in range(start, start + PROFILE_N)
                 if modes[i] == mode}
         ts = [t for j, t in enumerate(ts) if j not in skip]
         srt = sorted(ts)
@@ -801,21 +878,25 @@ def run_serving(torch, arch):
                              f"{m.arrivals} requests completed, expected "
                              f"{n_req}")
 
-    # the ranges appear twice: on the host, and on the device as the span
-    # of their kernels
-    events = prof.events()
-    device = [e for e in events if e.device_type == DeviceType.CUDA
-              and not e.name.startswith("iteration.")]
-    kernels = sorted((e.time_range.start, e.time_range.end) for e in device)
+    # the tracer's raw events, in microseconds (``prof.events()`` would
+    # build a tree over them: ~0.5 ms an event); the ranges appear twice,
+    # on the host and on the device as the span of their kernels
+    raw = prof.profiler.kineto_results.events()
+    t00 = min(e.start_ns() for e in raw)
+    events = [(e.name(), e.device_type(), (e.start_ns() - t00) / 1e3,
+               (e.end_ns() - t00) / 1e3) for e in raw]
+    device = [e for e in events if e[1] == DeviceType.CUDA
+              and not e[0].startswith("iteration.")]
+    kernels = sorted((e[2], e[3]) for e in device)
     total = sum(k1 - k0 for k0, k1 in kernels)
-    print(f"[serve] profiled iterations {PROFILE_FROM}-"
-          f"{PROFILE_FROM + PROFILE_N - 1} of this run: {len(kernels)} device "
+    print(f"[serve] profiled iterations {start}-"
+          f"{start + PROFILE_N - 1} of this run: {len(kernels)} device "
           f"events, {total / 1e3!r} device ms in {1e3 * window['wall']!r} ms "
           f"of host wall: device idle {1 - total / 1e6 / window['wall']!r}")
     for mode in ("mixed", "solo"):
-        ranges = sorted((e.time_range.start, e.time_range.end)
-                        for e in events if e.name == f"iteration.{mode}"
-                        and e.device_type == DeviceType.CPU)
+        ranges = sorted((e[2], e[3]) for e in events
+                        if e[0] == f"iteration.{mode}"
+                        and e[1] == DeviceType.CPU)
         if not ranges:
             raise AssertionError(f"serving {arch}: no {mode} iteration in "
                                  f"the profiled window")
@@ -825,9 +906,8 @@ def run_serving(torch, arch):
               f"ms mean {span / 1e3 / len(ranges)!r}, device busy ms mean "
               f"{busy / 1e3 / len(ranges)!r}: device idle {1 - busy / span!r}")
     by_kernel = {}
-    for e in device:
-        by_kernel[e.name] = by_kernel.get(e.name, 0.0) \
-            + e.time_range.end - e.time_range.start
+    for name, _, t0, t1 in device:
+        by_kernel[name] = by_kernel.get(name, 0.0) + t1 - t0
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
     print("[serve] profiled window's top device time (ms per iteration): "
           + ", ".join(f"{k[:48]} {v / 1e3 / PROFILE_N:.4f}" for k, v in top))
@@ -890,57 +970,94 @@ def _n_attn(cfg) -> int:
     return sum(s.mixer in ("attn", "attn_local") for s in cfg.block_specs())
 
 
-def _whole_prompt(torch, arch, B, S, steps):
-    """``arch`` at its published width and depth (random f32 weights,
-    seed 0): a whole-prompt ``forward_prefill(kernel_impl="pallas")`` with
-    bf16 caches, then ``steps`` decodes on them.  Every attention layer
-    must run B2 on its tensor-core route and B1 on its bf16 route, and
-    the logits must be finite."""
-    from repro_torch.configs import get_config
+def _finite(torch, tree) -> bool:
+    """Every floating leaf of a cache tree finite (one host sync)."""
+    from repro_torch.models.params import tree_map
+
+    flags = []
+    tree_map(lambda a: flags.append(torch.isfinite(a).all())
+             if a.is_floating_point() else None, tree)
+    return bool(torch.stack(flags).all())
+
+
+def _whole_prompt(torch, cfg, params, B, S, steps, *, stubs=None,
+                  tag="attn"):
+    """``cfg`` with ``params`` (drawn by the caller): a whole-prompt
+    prefill of ``S`` tokens (after the stubs' prefix, if any) through
+    ``make_prefill_step(kernel_impl="pallas")`` with bf16 caches, then
+    ``steps`` decodes on them through ``forward_decode``.  Every attention
+    layer must run B2 once on its activations' route (bf16: tensor cores)
+    with the prefix's length, and B1 once per decode on that dtype's
+    route; the caches and every logit must be finite.  Prints host walls
+    and the card's busy ms a decode; returns the launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.prefill_attention.ops import prefill_attention
     from repro_torch.models import model as M
     from repro_torch.models.config import segment_layers
+    from repro_torch.serving.steps import make_prefill_step
 
-    cfg = get_config(arch)
+    stubs = stubs or {}
     n_attn = _n_attn(cfg)
-    params = M.init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
-                          device="cuda")
+    P = stubs["prefix_embeds"].shape[1] if "prefix_embeds" in stubs else None
+    route, b1_dtype = (("tc", "bfloat16") if cfg.param_dtype == "bfloat16"
+                       else ("fp32", "float32"))
     gen = torch.Generator(device="cuda").manual_seed(2)
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                          device="cuda", dtype=torch.int32)
     pos = torch.arange(S, dtype=torch.int32, device="cuda")[None].expand(B, S)
-    caches = M.init_cache(cfg, B, S + steps, torch.bfloat16, "cuda")
+    caches = M.init_cache(cfg, B, (P or 0) + S + steps, torch.bfloat16,
+                          "cuda")
+    enc = ""
+    if "enc_frames" in stubs:  # the encoder alone, then again in the step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        M.encoder_forward(cfg, params, stubs["enc_frames"])
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t0
+        enc = (f"; the encoder ({cfg.encoder.n_layers} layers over "
+               f"{cfg.encoder.n_frames} frames) {1e3 * t_enc!r} ms of it, "
+               f"the decoder the rest")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, caches = M.forward_prefill(cfg, params, toks, pos, caches,
-                                       kernel_impl="pallas")
+    caches, nxt = make_prefill_step(cfg, kernel_impl="pallas")(
+        params, caches, toks, pos, **stubs)
     torch.cuda.synchronize()
     t_pf = time.perf_counter() - t0
-    if prefill_attention.launches_tc != n_attn \
-            or prefill_attention.launches != n_attn:
-        raise AssertionError(f"{arch} prefill: B2 launched "
-                             f"{prefill_attention.launches} times, "
-                             f"{prefill_attention.launches_tc} on the "
-                             f"tensor-core route; expected {n_attn}")
+    n_route = getattr(prefill_attention, f"launches_{route}")
+    if prefill_attention.launches != n_attn or n_route != n_attn \
+            or prefill_attention.prefix_lens[P] != n_attn:
+        raise AssertionError(
+            f"{cfg.name} prefill: B2 launched {prefill_attention.launches} "
+            f"times, {n_route} on the {route} route, by prefix_len "
+            f"{dict(prefill_attention.prefix_lens)}; expected {n_attn} with "
+            f"prefix_len {P}")
+    if not _finite(torch, caches):
+        raise AssertionError(f"{cfg.name} prefill: non-finite cache values")
+    ok = []
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(steps):
-        nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
-        logits, caches = M.forward_decode(
-            cfg, params, nxt,
-            torch.full((B,), S + i, dtype=torch.int32, device="cuda"),
-            caches)
+        last = (nxt[:, None], torch.full((B,), (P or 0) + S + i,
+                                         dtype=torch.int32, device="cuda"),
+                caches)
+        logits, caches = M.forward_decode(cfg, params, *last)
+        ok.append(torch.isfinite(logits.float()).all())
+        nxt = logits[:, -1].argmax(-1).to(torch.int32)
     torch.cuda.synchronize()
     t_dec = (time.perf_counter() - t0) / steps
-    bf16 = sum(n for (dt, _), n in decode_attention.routes.items()
-               if dt == "bfloat16")
-    if decode_attention.launches != steps * n_attn or bf16 != steps * n_attn:
-        raise AssertionError(f"{arch} decode: B1 launched "
-                             f"{decode_attention.launches} times ({bf16} "
-                             f"bf16); expected {steps} x {n_attn}")
+    on_route = sum(n for (dt, _), n in decode_attention.routes.items()
+                   if dt == b1_dtype)
+    if decode_attention.launches != steps * n_attn \
+            or on_route != steps * n_attn:
+        raise AssertionError(f"{cfg.name} decode: B1 launched "
+                             f"{decode_attention.launches} times ({on_route} "
+                             f"{b1_dtype}); expected {steps} x {n_attn}")
     if logits.shape != (B, 1, cfg.vocab_size) \
-            or not bool(torch.isfinite(logits.float()).all()):
-        raise AssertionError(f"{arch} B={B} S={S}: bad logits "
+            or not bool(torch.stack(ok).all()):
+        raise AssertionError(f"{cfg.name} B={B} S={S}: bad logits "
                              f"{tuple(logits.shape)} or non-finite values")
     ring = ""
     local = [seg[f"b{i}"]["pos"] for seg, (block, _) in
@@ -949,20 +1066,90 @@ def _whole_prompt(torch, arch, B, S, steps):
     if local:
         lo, hi = int(local[0].min()), int(local[0].max())
         if not (hi == S + steps - 1 and lo == S + steps - local[0].shape[-1]):
-            raise AssertionError(f"{arch}: the local ring holds positions "
-                                 f"{lo}..{hi}, expected the last "
+            raise AssertionError(f"{cfg.name}: the local ring holds "
+                                 f"positions {lo}..{hi}, expected the last "
                                  f"{local[0].shape[-1]} of {S + steps}")
         ring = (f"; local ring of {local[0].shape[-1]} wrapped, holds "
                 f"positions {lo}..{hi}")
-    print(f"[attn] {arch} (layers={cfg.n_layers}, {n_attn} attention, "
-          f"d_model={cfg.d_model} H={cfg.attn.n_heads} "
-          f"KV={cfg.attn.n_kv_heads} D={cfg.attn.head_dim} vocab="
-          f"{cfg.vocab_size}) forward_prefill(kernel_impl='pallas') B={B} "
-          f"S={S}, bf16 caches: {1e3 * t_pf!r} ms host wall (first call), "
-          f"B2 {prefill_attention.launches_tc} launches on the tensor-core "
-          f"route; {steps} decodes {1e3 * t_dec!r} ms each (host wall), "
-          f"B1 routes: {_b1_routes()}; logits finite{ring}")
-    return _counts()
+    counts, routes = _counts(), _b1_routes() or "none"
+    by_plan = dict(decode_attention.routes)
+    # the card's busy time a decode: the last decode twice more under the
+    # profiler (a decode leaves its input caches as they were), the sum of
+    # its device events over the calls
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            M.forward_decode(cfg, params, *last)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.end - e.time_range.start for e in dev) / 2e3
+    mixer = (f"H={cfg.attn.n_heads} KV={cfg.attn.n_kv_heads} "
+             f"D={cfg.attn.head_dim}" if cfg.attn is not None else
+             f"MLA H={cfg.mla.n_heads} r={cfg.mla.kv_lora_rank}")
+    print(f"[{tag}] {cfg.name} (layers={cfg.n_layers}, {n_attn} attention, "
+          f"d_model={cfg.d_model} {mixer} vocab={cfg.vocab_size}, weights "
+          f"{params['embed'].dtype}) prefill step (kernel_impl='pallas') "
+          f"B={B} S={S}" + (f" after a {P}-patch prefix" if P else "")
+          + f", bf16 caches: {1e3 * t_pf!r} ms host wall (first call){enc}; "
+          f"B2 {prefill_attention.launches} launches on the {route} route "
+          f"(prefix_len {P}); {steps} decodes {1e3 * t_dec!r} ms each (host "
+          f"wall), the card busy {busy!r} ms a decode ({len(dev) // 2} "
+          f"device events; profiler): idle {1 - busy / (1e3 * t_dec)!r}; "
+          f"B1 routes: {routes}; logits finite{ring}")
+    return counts, by_plan
+
+
+def _reduced_matches_cpu(torch, arch, tag="attn"):
+    """Reduced ``arch`` on the card against the CPU on the same weights
+    (seed 0): a whole prefill of 40 tokens (B2 on the card), two 16-token
+    continuation chunks, 8 decodes (B1), every prefill with the config's
+    stubs and the decodes past the prefix; logits within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_map
+
+    small = get_config(arch, reduced=True)
+    p_cpu = M.init_model(small, torch.Generator().manual_seed(0),
+                         device="cpu")
+    rng = torch.Generator().manual_seed(3)
+    stubs = _stubs(torch, small, 2, rng)
+    P = small.vision.n_patches if small.vision is not None else 0
+    calls = [(torch.randint(0, small.vocab_size, (2, 40), generator=rng,
+                            dtype=torch.int32), 0, False)]
+    calls += [(torch.randint(0, small.vocab_size, (2, 16), generator=rng,
+                             dtype=torch.int32), p0, True) for p0 in (40, 56)]
+    calls += [(torch.randint(0, small.vocab_size, (2, 1), generator=rng,
+                             dtype=torch.int32), P + 72 + i, None)
+              for i in range(8)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda a: a.to(dev), p_cpu)
+        kw = {k: v.to(dev) for k, v in stubs.items()}
+        caches = M.init_cache(small, 2, 96, torch.float32, dev)
+        outs[dev] = []
+        for toks, p0, cont in calls:
+            t = toks.to(dev)
+            if cont is None:
+                lg, caches = M.forward_decode(
+                    small, p, t, torch.full((2,), p0, dtype=torch.int32,
+                                            device=dev), caches)
+            else:
+                pos = (p0 + torch.arange(t.shape[1], dtype=torch.int32,
+                                         device=dev))[None].expand(2, -1)
+                lg, caches = M.forward_prefill(
+                    small, p, t, pos, caches, kernel_impl="pallas",
+                    continuation=cont, **kw)
+            outs[dev].append(lg.cpu())
+    err = max(float((a - b).abs().max())
+              for a, b in zip(outs["cpu"], outs["cuda"]))
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        if not bool(((a - b).abs() <= 1e-4 + 1e-4 * a.abs()).all()):
+            raise AssertionError(f"reduced {arch}: card vs CPU max abs err "
+                                 f"{err} beyond 1e-4")
+    print(f"[{tag}] reduced {arch} on the card matches the CPU over a whole "
+          f"prefill, 2 continuation chunks and 8 decodes"
+          + (f" ({', '.join(stubs)})" if stubs else "")
+          + f": logits max abs err {err!r}")
 
 
 def check_attention_outputs(torch):
@@ -971,58 +1158,24 @@ def check_attention_outputs(torch):
     CPU's plain versions on the same weights.  Returns the launches."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
-    from repro_torch.models.params import tree_map
 
     total = {}
     for arch, B, S, steps in (("qwen2-0.5b", 4, 2048, 16),
                               ("gemma2-2b", 1, 4608, 4)):
+        cfg = get_config(arch)
+        params = M.init_model(
+            cfg, torch.Generator(device="cuda").manual_seed(0),
+            device="cuda")
         _zero_counts()
-        for k, n in _whole_prompt(torch, arch, B, S, steps).items():
+        for k, n in _whole_prompt(torch, cfg, params, B, S,
+                                  steps)[0].items():
             total[k] = total.get(k, 0) + n
+        del params
         torch.cuda.empty_cache()
 
-    # reduced configs (window 32): a whole prefill (B2), two continuation
-    # chunks, 8 decodes (B1), the rings wrapped
+    # reduced configs (window 32): the rings wrap
     for arch in ("qwen2-0.5b", "gemma2-2b", "recurrentgemma-2b"):
-        small = get_config(arch, reduced=True)
-        p_cpu = M.init_model(small, torch.Generator().manual_seed(0),
-                             device="cpu")
-        rng = torch.Generator().manual_seed(3)
-        calls = [(torch.randint(0, small.vocab_size, (2, 40), generator=rng,
-                                dtype=torch.int32), 0, False)]
-        calls += [(torch.randint(0, small.vocab_size, (2, 16), generator=rng,
-                                 dtype=torch.int32), p0, True)
-                  for p0 in (40, 56)]
-        calls += [(torch.randint(0, small.vocab_size, (2, 1), generator=rng,
-                                 dtype=torch.int32), 72 + i, None)
-                  for i in range(8)]
-        outs = {}
-        for dev in ("cpu", "cuda"):
-            p = tree_map(lambda a: a.to(dev), p_cpu)
-            caches = M.init_cache(small, 2, 96, torch.float32, dev)
-            outs[dev] = []
-            for toks, p0, cont in calls:
-                t = toks.to(dev)
-                if cont is None:
-                    lg, caches = M.forward_decode(
-                        small, p, t, torch.full((2,), p0, dtype=torch.int32,
-                                                device=dev), caches)
-                else:
-                    pos = (p0 + torch.arange(t.shape[1], dtype=torch.int32,
-                                             device=dev))[None].expand(2, -1)
-                    lg, caches = M.forward_prefill(
-                        small, p, t, pos, caches, kernel_impl="pallas",
-                        continuation=cont)
-                outs[dev].append(lg.cpu())
-        err = max(float((a - b).abs().max())
-                  for a, b in zip(outs["cpu"], outs["cuda"]))
-        for a, b in zip(outs["cpu"], outs["cuda"]):
-            if not bool(((a - b).abs() <= 1e-4 + 1e-4 * a.abs()).all()):
-                raise AssertionError(f"reduced {arch}: card vs CPU max abs "
-                                     f"err {err} beyond 1e-4")
-        print(f"[attn] reduced {arch} on the card matches the CPU over a "
-              f"whole prefill, 2 continuation chunks and 8 decodes: logits "
-              f"max abs err {err!r}")
+        _reduced_matches_cpu(torch, arch)
     return total
 
 
@@ -2076,6 +2229,203 @@ def check_sweep(torch, smi: str) -> dict:
     return {"launches": launches}
 
 
+# ------------------------------------------- phase 10: the rest of A10
+# B1 and B2 at every shape phase 10's path gives them, with the stage
+# that launches it: (arch, "serve") is the engine's decode (batch cap 4,
+# max_len 256; f32 caches promote every dtype to f32), (arch, "whole")
+# the whole-prompt prefill step with bf16 caches and the decodes after
+# it (whisper-base's f32 weights promote both kernels to f32)
+A10_B1 = (  # dtype, B, S, H, KV, D, window, stage
+    ("float32", 4, 256, 8, 1, 256, None, ("paligemma-3b", "serve")),
+    ("float32", 4, 256, 48, 8, 128, None, ("grok-1-314b", "serve")),
+    ("float32", 4, 256, 10, 1, 256, 2048, ("recurrentgemma-2b", "serve")),
+    ("bfloat16", 4, 256 + 512 + A10_STEPS, 8, 1, 256, None,
+     ("paligemma-3b", "whole")),
+    ("float32", 4, 448 + A10_STEPS, 8, 8, 64, None, ("whisper-base", "whole")),
+    ("bfloat16", 4, 2048 + A10_STEPS, 48, 8, 128, None,
+     ("grok-1-314b", "whole")))
+A10_B2 = (  # dtype, B, S, H, KV, D, prefix_len, stage
+    ("bfloat16", 4, 768, 8, 1, 256, 256, ("paligemma-3b", "whole")),
+    ("bfloat16", 4, 2048, 48, 8, 128, None, ("grok-1-314b", "whole")),
+    ("float32", 4, 448, 8, 8, 64, None, ("whisper-base", "whole")))
+
+
+def _a10_kernels(torch):
+    """B1 and B2 at phase 10's shapes (``A10_B1``, ``A10_B2``) against
+    their plain versions, full caches; each row keeps its stage."""
+    from repro_torch.telemetry.timing import timeit_median_cuda
+
+    def ms(fn):
+        return timeit_median_cuda(fn) * 1e3
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(10)
+
+    def rnd(dname, *shape):
+        return torch.randn(*shape, generator=gen, device="cuda",
+                           dtype=getattr(torch, dname))
+
+    rows = {"decode_attention": [], "prefill_attention": []}
+    for dname, B, S, H, KV, D, window, stage in A10_B1:
+        args = (rnd(dname, B, 1, H, D), rnd(dname, B, S, KV, D),
+                rnd(dname, B, S, KV, D),
+                torch.full((B,), S, dtype=torch.int32, device="cuda"))
+        kw = {}
+        if window is not None:  # the ring as the engine's local layer holds it
+            kw = dict(window=window, q_positions=args[3] - 1,
+                      k_positions=torch.arange(
+                          S, dtype=torch.int32,
+                          device="cuda").expand(B, S).contiguous())
+        desc = (f"B={B} S={S} H={H} KV={KV} D={D}"
+                + (f" window={window}" if window else "")
+                + f" {stage[0]} {stage[1]}")
+        row = _decode_row(torch, ms, n_sm, dname, desc, args, kw, B * S)
+        row["stage"] = stage
+        rows["decode_attention"].append(row)
+    for dname, B, S, H, KV, D, prefix_len, stage in A10_B2:
+        args = (rnd(dname, B, S, H, D), rnd(dname, B, S, KV, D),
+                rnd(dname, B, S, KV, D))
+        kw = {"prefix_len": prefix_len} if prefix_len else {}
+        desc = (f"B={B} S={S} H={H} KV={KV} D={D}"
+                + (f" prefix={prefix_len}" if prefix_len else "")
+                + f" {stage[0]} {stage[1]}")
+        row = _prefill_row(torch, ms, dname, desc, args, kw)
+        row["stage"] = stage
+        rows["prefill_attention"].append(row)
+    _print_rows(rows, "a10")
+    return rows
+
+
+def _stubs(torch, cfg, B, gen, dtype=None):
+    """The stub inputs ``cfg`` takes, drawn from ``gen`` on its device
+    (f32 unless ``dtype``): patch embeddings for a prefix-LM, frame
+    embeddings for an encoder-decoder."""
+    kw = dict(generator=gen, device=gen.device, dtype=dtype or torch.float32)
+    out = {}
+    if cfg.vision is not None:
+        out["prefix_embeds"] = torch.randn(B, cfg.vision.n_patches,
+                                           cfg.d_model, **kw)
+    if cfg.encoder is not None:
+        out["enc_frames"] = torch.randn(B, cfg.encoder.n_frames,
+                                        cfg.encoder.d_model, **kw)
+    return out
+
+
+def check_a10(torch, smi: str):
+    """Phase 10: paligemma-3b, whisper-base, grok-1 (2 of 64 layers),
+    deepseek-v3 (4 of 61) and recurrentgemma-2b at their published widths,
+    weights drawn on the card in the config's ``param_dtype``: (a) B1 and
+    B2 at their shapes; (b) served through ``serve`` (f32 caches, 8
+    requests); (c) a whole-prompt prefill step with bf16 caches and
+    decodes; (d) reduced models on the card against the CPU.  Returns
+    (kernel rows, launches of (b) and (c))."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    rows = _a10_kernels(torch)
+    print(f"[a10] (a) kernels checked in {time.perf_counter() - t0:.1f} s")
+
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.prefill_attention.ops import prefill_attention
+
+    total, stages = {}, {}
+    for arch in A10_ARCHS:
+        full = get_config(arch)
+        cfg = full.replace(n_layers=A10_DEPTH.get(arch, full.n_layers))
+        dtype = torch.bfloat16 if cfg.param_dtype == "bfloat16" \
+            else torch.float32
+        n_params = M.param_count(cfg)
+        el = torch.finfo(dtype).bits // 8
+        print(f"[a10] {arch}: {cfg.n_layers} of {full.n_layers} layers"
+              + (" (depth cut: one card)" if cfg.n_layers < full.n_layers
+                 else "")
+              + f", {n_params} parameters, {n_params * el} bytes in "
+              f"{dtype} ({smi})")
+        n_attn = _n_attn(cfg)
+        if arch in A10_SERVE:
+            t1 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            m, served = run_serving(torch, arch, cfg=cfg, n_req=A10_REQUESTS,
+                                    dtype=dtype)
+            stages[arch, "serve"] = (served, dict(decode_attention.routes),
+                                     prefill_attention.launches_tc,
+                                     prefill_attention.launches_fp32)
+            iters = len(m.iter_wall["mixed"]) + len(m.iter_wall["solo"])
+            if served["decode_attention"] != n_attn * iters:
+                raise AssertionError(
+                    f"serving {arch}: decode_attention launched "
+                    f"{served['decode_attention']} times for {iters} "
+                    f"iterations x {n_attn} attention layers")
+            for k, n in served.items():
+                total[k] = total.get(k, 0) + n
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"[a10] (b) {arch} served {A10_REQUESTS} requests (cut "
+                  f"from 24) in {time.perf_counter() - t1:.1f} s: {iters} "
+                  f"iterations x {n_attn} attention layers = "
+                  f"{served['decode_attention']} B1 launches; peak "
+                  f"allocated {torch.cuda.max_memory_allocated()} bytes")
+        if arch in A10_WHOLE:
+            t1 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            params = M.init_model(
+                cfg, torch.Generator(device="cuda").manual_seed(0),
+                dtype=dtype, device="cuda")
+            torch.cuda.synchronize()
+            print(f"[a10] (c) {arch} weights drawn in "
+                  f"{time.perf_counter() - t1:.1f} s: "
+                  f"{torch.cuda.memory_allocated()} bytes held, peak "
+                  f"allocated {torch.cuda.max_memory_allocated()} at the "
+                  f"draw")
+            B, S = A10_WHOLE[arch]
+            _zero_counts()
+            counts, by_plan = _whole_prompt(
+                torch, cfg, params, B, S, A10_STEPS, tag="a10",
+                stubs=_stubs(torch, cfg, B,
+                             torch.Generator(device="cuda").manual_seed(4),
+                             dtype))
+            stages[arch, "whole"] = (counts, by_plan,
+                                     prefill_attention.launches_tc,
+                                     prefill_attention.launches_fp32)
+            for k, n in counts.items():
+                total[k] = total.get(k, 0) + n
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"[a10] (c) {arch} in {time.perf_counter() - t1:.1f} s, "
+                  f"peak allocated {torch.cuda.max_memory_allocated()} bytes")
+
+    t1 = time.perf_counter()
+    for arch in ("paligemma-3b", "whisper-base", "deepseek-v3-671b",
+                 "grok-1-314b"):
+        _reduced_matches_cpu(torch, arch, tag="a10")
+    print(f"[a10] (d) in {time.perf_counter() - t1:.1f} s")
+    for k in ("decode_attention", "prefill_attention"):
+        if total.get(k, 0) <= 0:
+            raise AssertionError(f"phase 10 never launched {k}")
+    # every row of (a) is a shape its stage launched: B1 by its plan (the
+    # split of that B, S and head layout) and dtype, B2 by its route
+    for r in rows["decode_attention"]:
+        r["launches"] = stages[r["stage"]][1].get((r["dtype"], r["plan"]), 0)
+    for r in rows["prefill_attention"]:
+        counts, _, tc, fp32 = stages[r["stage"]]
+        r["launches"] = {"tc": tc, "fp32": fp32}[r["route"]]
+        if r["launches"] != counts["prefill_attention"]:
+            r["launches"] = 0
+    for k, rs in rows.items():
+        for r in rs:
+            print(f"[a10] {k} {r['dtype']} {r['shape']}: {r['launches']} "
+                  f"launches in its stage")
+            if r["launches"] <= 0:
+                raise AssertionError(f"{k} {r['dtype']} {r['shape']}: its "
+                                     f"stage never launched this shape")
+    return rows, total
+
+
 def main() -> int:
     import torch
 
@@ -2211,6 +2561,14 @@ def main() -> int:
     t0 = time.perf_counter()
     sweep_row = check_sweep(torch, smi)
     print(f"[sweep] phase 9 in {time.perf_counter() - t0:.1f} s ({smi})")
+
+    # 10. the rest of the data plane: prefix-LM, encoder, MLA, MoE
+    t0 = time.perf_counter()
+    a10_rows, a10_launches = check_a10(torch, smi)
+    for k, rs in a10_rows.items():
+        rows[k] += rs
+        launches[k] += a10_launches[k]
+    print(f"[a10] phase 10 in {time.perf_counter() - t0:.1f} s ({smi})")
 
     # the main path's largest shape per kernel stands for it in the line
     main_shape = {"decode_attention": "B=16 S=512 main",

@@ -12,6 +12,7 @@ wrapper does not there: ROADMAP C-ref1).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -72,8 +73,9 @@ def prefill_attention(q, k, v, *, causal: bool = True,
     CUDA tensors launch the kernel (``csrc/prefill_attention.cu``): bf16
     the tensor-core route, f32 the FP32-pipe route (TF32 would not hold
     f32 to its 3e-5).  CPU tensors run :func:`prefill_attention_plain`.
-    Launches count in ``prefill_attention.launches`` and, by route, in
-    ``prefill_attention.launches_tc`` and ``launches_fp32``.
+    Launches count in ``prefill_attention.launches``, by route in
+    ``prefill_attention.launches_tc`` and ``launches_fp32``, and by
+    ``prefix_len`` in the counter ``prefill_attention.prefix_lens``.
     """
     check_tensors("prefill_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
@@ -116,9 +118,11 @@ def prefill_attention(q, k, v, *, causal: bool = True,
         prefill_attention.launches_tc += 1
     else:
         prefill_attention.launches_fp32 += 1
+    prefill_attention.prefix_lens[prefix_len] += 1
     return out
 
 
 prefill_attention.launches = 0
 prefill_attention.launches_tc = 0  # bf16: wgmma tensor-core kernel
 prefill_attention.launches_fp32 = 0  # f32: FP32-pipe kernel
+prefill_attention.prefix_lens = collections.Counter()  # prefix_len -> n

@@ -34,9 +34,15 @@ __all__ = ["serve", "main"]
 
 def serve(cfg: ModelConfig, *, servers: int = 4, requests: int = 24,
           batch_cap: int = 4, chunk: int = 16, rate: float = 2.0,
-          seed: int = 0, device=None) -> ClusterMetrics:
+          seed: int = 0, device=None,
+          dtype=torch.float32) -> ClusterMetrics:
     """Plan, build ``servers`` engines over random weights from ``seed``,
-    replay ``requests`` arrivals at ``rate``/s and return the metrics."""
+    replay ``requests`` arrivals at ``rate``/s and return the metrics.
+
+    The weights are drawn in ``dtype``: f32 by default, as the
+    reference's ``serve`` draws them; ``chip_smoke.py`` passes a config's
+    ``param_dtype`` so that the MoE configs' weights fit one card.  The
+    caches are f32 either way, as the reference's."""
     device = resolve_device(device)
     prim = ServicePrimitives(batch_cap=batch_cap, chunk=chunk)
     pricing = Pricing()
@@ -52,7 +58,7 @@ def serve(cfg: ModelConfig, *, servers: int = 4, requests: int = 24,
           f"R*={plan.revenue_rate:.3f}/server/s")
 
     gen = torch.Generator(device=device).manual_seed(seed)
-    params = M.init_model(cfg, gen, device=device)
+    params = M.init_model(cfg, gen, dtype=dtype, device=device)
     cluster = RealCluster(cfg, params, classes, plan, prim, pricing,
                           n_servers=servers, max_len=256, seed=seed,
                           device=device)

@@ -1,13 +1,14 @@
 """Model substrate: configs, params, mixers, and the unified LM.
 
-The forwards serve the ``attn``/``attn_local``, ``rec`` and ``ssm``
-mixers; MLA, MoE, cross-attention with the encoder and prefix-LM are
-ROADMAP A10, training ROADMAP A12.
+The forwards serve every mixer of the ten configs (``attn``/
+``attn_local``, ``mla``, ``rec``, ``ssm``), the MLP and MoE channels,
+cross-attention with the encoder and prefix-LM; training is ROADMAP A12.
 """
 
 from .config import ModelConfig  # noqa: F401
 from .model import (  # noqa: F401
     active_param_count,
+    encoder_forward,
     forward_decode,
     forward_prefill,
     init_cache,

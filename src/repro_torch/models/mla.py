@@ -1,13 +1,33 @@
-"""Multi-head Latent Attention parameter shapes (the forwards are ROADMAP A10)."""
+"""Multi-head Latent Attention (DeepSeek-V2/V3).
+
+The reference's ``models/mla``: the KV cache stores only the compressed
+latent c_kv (rank r) plus the shared RoPE key -- (r + d_rope) per token
+per layer instead of 2*KV*D.  Decode uses the *absorbed* formulation:
+queries are projected into latent space (q_nope @ W_uk) so scores are
+taken directly against the latent cache, and the attention output stays
+in latent space until the per-head W_uv/W_o projection.
+
+Scores and softmax run in f32 (the reference's
+``preferred_element_type=jnp.float32``: both operands widened before the
+contraction), the probabilities are cast back to the activations' dtype,
+and every other contraction promotes its operands as ``jnp.einsum`` does
+(bf16 activations against an f32 cache read in f32).  As in
+``models.attention``, the cache writers write into the cache they are
+given; ``models.model`` hands each call its own copy.
+"""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from ..compat import resolve_device
+from .attention import _NEG, _dequantize_kv, _einsum, _quantize_kv, _scatter
 from .config import MLAConfig
+from .layers import apply_rope, rope_table
 from .params import PDef
 
-__all__ = ["mla_defs"]
+__all__ = ["mla_defs", "mla_prefill", "mla_decode", "init_mla_cache"]
 
 
 def mla_defs(cfg: MLAConfig, d_model: int) -> dict:
@@ -34,3 +54,159 @@ def mla_defs(cfg: MLAConfig, d_model: int) -> dict:
         "wo": PDef((H, cfg.v_head_dim, d_model), ("heads", None, "embed"),
                    scale=s_o),
     }
+
+
+def init_mla_cache(cfg: MLAConfig, batch: int, max_len: int, dtype,
+                   quant=False, device=None):
+    """Latent cache; ``quant=True`` stores int8 latents + per-token f16
+    scales (the latent is already compressed -- int8 halves it again)."""
+    device = resolve_device(device)
+    dt = torch.int8 if quant else dtype
+    cache = {
+        "c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dt,
+                            device=device),
+        "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=dt,
+                              device=device),
+    }
+    if quant:
+        cache["c_s"] = torch.zeros((batch, max_len), dtype=torch.float16,
+                                   device=device)
+        cache["r_s"] = torch.zeros((batch, max_len), dtype=torch.float16,
+                                   device=device)
+    return cache
+
+
+def _mla_write(cache, b, pos2d, c_kv, k_rope):
+    """``cache.at[b, pos2d].set(...)``, written into ``cache``."""
+    if "c_s" in cache:
+        qc, sc = _quantize_kv(c_kv)
+        qr, sr = _quantize_kv(k_rope)
+        return {
+            "c_kv": _scatter(cache["c_kv"], b, pos2d, qc),
+            "k_rope": _scatter(cache["k_rope"], b, pos2d, qr),
+            "c_s": _scatter(cache["c_s"], b, pos2d, sc),
+            "r_s": _scatter(cache["r_s"], b, pos2d, sr),
+        }
+    return {
+        "c_kv": _scatter(cache["c_kv"], b, pos2d, c_kv),
+        "k_rope": _scatter(cache["k_rope"], b, pos2d, k_rope),
+    }
+
+
+def _mla_read(cache, dtype):
+    if "c_s" in cache:
+        return (_dequantize_kv(cache["c_kv"], cache["c_s"], dtype),
+                _dequantize_kv(cache["k_rope"], cache["r_s"], dtype))
+    return cache["c_kv"], cache["k_rope"]
+
+
+def _rope(cfg: MLAConfig, x, positions):
+    sin, cos = rope_table(positions, cfg.qk_rope_dim, cfg.rope_theta)
+    return apply_rope(x, sin, cos)
+
+
+def _queries(cfg: MLAConfig, p, x, positions):
+    q = torch.einsum("bsd,dr->bsr", x, p["w_dq"].to(x.dtype))
+    q = torch.einsum("bsr,rhk->bshk", q, p["w_uq"].to(x.dtype))
+    q_nope = q[..., : cfg.qk_nope_dim]
+    q_rope = _rope(cfg, q[..., cfg.qk_nope_dim:], positions)
+    return q_nope, q_rope
+
+
+def _latents(cfg: MLAConfig, p, x, positions):
+    """The token's cache entries: latent c_kv and the roped shared key."""
+    c_kv = torch.einsum("bsd,dr->bsr", x, p["w_dkv"].to(x.dtype))
+    k_rope = torch.einsum("bsd,dk->bsk", x, p["w_kr"].to(x.dtype))
+    return c_kv, _rope(cfg, k_rope[:, :, None, :], positions)[:, :, 0, :]
+
+
+def _scores(eq_lat, eq_rope, q_lat, q_rope, ckv, krope, scale):
+    """Absorbed scores in f32: latent part plus RoPE part."""
+    return (torch.einsum(eq_lat, q_lat.float(), ckv.float())
+            + torch.einsum(eq_rope, q_rope.float(), krope.float())) \
+        * float(scale)
+
+
+def _out(p, ctx, x_dtype, eq_uv, eq_o):
+    o = _einsum(eq_uv, ctx, p["w_uv"].to(x_dtype))
+    return _einsum(eq_o, o, p["wo"].to(x_dtype))
+
+
+def mla_prefill(cfg: MLAConfig, p, x, positions, cache=None, block_q=512,
+                continuation=False):
+    """Full-sequence MLA (causal); writes the latent cache in place.
+
+    ``continuation=True``: chunked-prefill semantics -- the chunk's latents
+    are merged into the cache first and queries attend over the cached
+    context (absolute positions assumed uniform across batch rows).
+    Otherwise queries attend over the chunk's own latents in blocks of
+    ``block_q``, each restricted statically to the keys at or before its
+    last query.
+    """
+    B, S, _ = x.shape
+    q_nope, q_rope = _queries(cfg, p, x, positions)
+    c_kv, k_rope = _latents(cfg, p, x, positions)
+
+    new_cache = None
+    if cache is not None:
+        b = torch.arange(B, device=x.device)[:, None]
+        pos2d = positions if positions.dim() > 1 else \
+            positions[None, :].expand(B, -1)
+        new_cache = _mla_write(cache, b, pos2d.long(), c_kv, k_rope)
+
+    # absorbed scores: q_lat = q_nope @ W_uk  -> (B,S,H,r)
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"].to(x.dtype))
+    scale = 1.0 / np.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    if continuation:
+        if new_cache is None:
+            raise ValueError("continuation needs a cache")
+        ckv_all, krope_all = _mla_read(new_cache, x.dtype)
+        qpos = positions[0] if positions.dim() > 1 else positions
+        sc = _scores("bqhr,bsr->bhqs", "bqhk,bsk->bhqs", q_lat, q_rope,
+                     ckv_all, krope_all, scale)
+        kpos = torch.arange(ckv_all.shape[1], device=x.device)
+        sc = sc.masked_fill(kpos[None, None, None, :]
+                            > qpos[None, None, :, None], _NEG)
+        pr = torch.softmax(sc, dim=-1).to(x.dtype)
+        ctx = _einsum("bhqs,bsr->bqhr", pr, ckv_all)
+    else:
+        outs = []
+        block_q = min(block_q, S)
+        for s0 in range(0, S, block_q):
+            s1 = min(S, s0 + block_q)  # causal static restriction: keys < s1
+            sc = _scores("bqhr,bsr->bhqs", "bqhk,bsk->bhqs",
+                         q_lat[:, s0:s1], q_rope[:, s0:s1], c_kv[:, :s1],
+                         k_rope[:, :s1], scale)
+            qpos = torch.arange(s0, s1, device=x.device)
+            kpos = torch.arange(s1, device=x.device)
+            sc = sc.masked_fill(kpos[None, None, None, :]
+                                > qpos[None, None, :, None], _NEG)
+            pr = torch.softmax(sc, dim=-1).to(x.dtype)
+            outs.append(torch.einsum("bhqs,bsr->bqhr", pr, c_kv[:, :s1]))
+        ctx = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    out = _out(p, ctx, x.dtype, "bqhr,rhv->bqhv", "bqhv,hvd->bqd")
+    return out, new_cache
+
+
+def mla_decode(cfg: MLAConfig, p, x, positions, cache):
+    """One-token absorbed decode over the latent cache; positions (B,).
+    Writes the token's latents into ``cache`` and returns it."""
+    B = x.shape[0]
+    pos = positions[:, None]
+    q_nope, q_rope = _queries(cfg, p, x, pos)
+    c_new, k_new = _latents(cfg, p, x, pos)
+    b = torch.arange(B, device=x.device)[:, None]
+    cache = _mla_write(cache, b, pos.long(), c_new, k_new)
+    ckv_all, krope_all = _mla_read(cache, x.dtype)
+    S = ckv_all.shape[1]
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope,
+                         p["w_uk"].to(x.dtype))[:, 0]
+    scale = 1.0 / np.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    sc = _scores("bhr,bsr->bhs", "bhk,bsk->bhs", q_lat, q_rope[:, 0],
+                 ckv_all, krope_all, scale)
+    valid = torch.arange(S, device=x.device)[None, :] <= positions[:, None]
+    sc = sc.masked_fill(~valid[:, None, :], _NEG)
+    pr = torch.softmax(sc, dim=-1).to(x.dtype)
+    ctx = _einsum("bhs,bsr->bhr", pr, ckv_all)
+    out = _out(p, ctx, x.dtype, "bhr,rhv->bhv", "bhv,hvd->bd")[:, None, :]
+    return out, cache

@@ -14,13 +14,14 @@ Entry points of the serving path:
   returns the last-position logits.
 * :func:`forward_decode` -- one-token decode step over the caches.
 
-The ``attn``/``attn_local``, ``rec`` and ``ssm`` mixers run.  The loop
-over layers is the reference's ``unroll=True`` form, whose semantics the
-port keeps where its scanned form refuses a residual stream that changes
-dtype (bf16 activations against f32 caches, ROADMAP C-ref5).  The
-``mla`` mixer, MoE channels, cross-attention, the encoder, prefix
-embeddings and learned positions raise ``NotImplementedError`` (ROADMAP
-A10), and training is ROADMAP A12.
+Every mixer (``attn``/``attn_local``, ``mla``, ``rec``, ``ssm``) and
+channel (``mlp``, ``moe``) runs.  Encoder-decoder (whisper) runs its
+encoder over stub frame embeddings and feeds cross-attention KV to every
+decoder block; prefix-LM (paligemma) prepends stub patch embeddings with
+a bidirectional prefix mask.  The loop over layers is the reference's
+``unroll=True`` form, whose semantics the port keeps where its scanned
+form refuses a residual stream that changes dtype (bf16 activations
+against f32 caches, ROADMAP C-ref5).  Training is ROADMAP A12.
 """
 
 from __future__ import annotations
@@ -29,25 +30,19 @@ import numpy as np
 import torch
 
 from ..compat import resolve_device
-from .attention import attention_decode, attention_prefill, attn_defs, \
-    init_kv_cache
+from .attention import _einsum, attention_decode, attention_prefill, \
+    attn_defs, blockwise_attention, init_kv_cache
 from .config import BlockSpec, ModelConfig, segment_layers
 from .layers import apply_mlp, layernorm, mlp_defs, rmsnorm, softcap
-from .mla import mla_defs
-from .moe import moe_defs
+from .mla import init_mla_cache, mla_decode, mla_defs, mla_prefill
+from .moe import apply_moe, moe_defs
 from .params import PDef, _walk, init_params, tree_map
 from .rglru import init_rglru_cache, rglru_decode, rglru_defs, rglru_forward
 from .ssm import init_ssm_cache, ssm_decode, ssm_defs, ssm_forward
 
 __all__ = ["model_defs", "param_count", "active_param_count", "init_cache",
-           "forward_prefill", "forward_decode", "init_model"]
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP A10: MLA, MoE, "
-        f"cross-attention with the encoder, prefix-LM); the port serves the "
-        f"attn, rec and ssm mixers")
+           "forward_prefill", "forward_decode", "encoder_forward",
+           "init_model"]
 
 
 # ------------------------------------------------------------------ norms
@@ -152,18 +147,26 @@ def model_defs(cfg: ModelConfig) -> dict:
 
 def _block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int, max_len: int,
                  dtype, device):
-    if spec.cross_attn:
-        raise _not_ported("cross-attention")
     if spec.mixer in ("attn", "attn_local"):
         ring = cfg.attn.window if spec.mixer == "attn_local" else None
-        return init_kv_cache(batch, max_len, cfg.attn.n_kv_heads,
-                             cfg.attn.head_dim, dtype, ring_window=ring,
-                             quant=cfg.kv_quant, device=device)
-    if spec.mixer == "ssm":
-        return init_ssm_cache(cfg.ssm, cfg.d_model, batch, dtype, device)
-    if spec.mixer == "rec":
-        return init_rglru_cache(cfg.rglru, cfg.d_model, batch, dtype, device)
-    raise _not_ported(f"the {spec.mixer!r} mixer's cache")
+        c = init_kv_cache(batch, max_len, cfg.attn.n_kv_heads,
+                          cfg.attn.head_dim, dtype, ring_window=ring,
+                          quant=cfg.kv_quant, device=device)
+    elif spec.mixer == "mla":
+        c = init_mla_cache(cfg.mla, batch, max_len, dtype,
+                           quant=cfg.kv_quant, device=device)
+    elif spec.mixer == "ssm":
+        c = init_ssm_cache(cfg.ssm, cfg.d_model, batch, dtype, device)
+    elif spec.mixer == "rec":
+        c = init_rglru_cache(cfg.rglru, cfg.d_model, batch, dtype, device)
+    else:
+        raise ValueError(spec.mixer)
+    if spec.cross_attn:
+        shape = (batch, cfg.encoder.n_frames, cfg.attn.n_kv_heads,
+                 cfg.attn.head_dim)
+        c["xk"] = torch.zeros(shape, dtype=dtype, device=device)
+        c["xv"] = torch.zeros(shape, dtype=dtype, device=device)
+    return c
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -184,8 +187,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # ------------------------------------------------------------- block apply
 
 
+def _cross_attention(cfg: ModelConfig, p, x, xk, xv):
+    """Decoder->encoder cross attention (no mask, no rope)."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    out = blockwise_attention(
+        q, xk, xv,
+        q_positions=torch.arange(x.shape[1], device=x.device),
+        k_positions=torch.arange(xk.shape[1], device=x.device),
+        causal=False,
+    )
+    return _einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+
+
 def _apply_block(cfg: ModelConfig, spec: BlockSpec, p, x, *, positions,
-                 mode, cache, kernel_impl="xla", continuation=False):
+                 mode, cache, prefix_len=None, enc_out=None,
+                 kernel_impl="xla", continuation=False):
     """One layer. mode: "prefill" | "decode"."""
     h = _apply_norm(cfg, p["ln1"], x)
     new_cache = dict(cache) if cache is not None else None
@@ -201,7 +217,18 @@ def _apply_block(cfg: ModelConfig, spec: BlockSpec, p, x, *, positions,
         else:
             out, nc = attention_prefill(
                 cfg.attn, p["attn"], h, positions, local=local, cache=sub,
-                kernel_impl=kernel_impl, continuation=continuation)
+                prefix_len=prefix_len, kernel_impl=kernel_impl,
+                continuation=continuation)
+    elif spec.mixer == "mla":
+        mla_keys = ("c_kv", "k_rope") + (
+            ("c_s", "r_s") if cache is not None and "c_s" in cache else ())
+        sub = ({k: cache[k] for k in mla_keys}
+               if cache is not None else None)
+        if mode == "decode":
+            out, nc = mla_decode(cfg.mla, p["mla"], h, positions, sub)
+        else:
+            out, nc = mla_prefill(cfg.mla, p["mla"], h, positions, cache=sub,
+                                  continuation=continuation)
     elif spec.mixer in ("ssm", "rec"):
         # both ignore ``continuation``, as in the reference: rec starts
         # from the cache's conv and state, ssm from its conv and a zero
@@ -216,19 +243,32 @@ def _apply_block(cfg: ModelConfig, spec: BlockSpec, p, x, *, positions,
         else:
             out, nc = fwd(mcfg, p[spec.mixer], h, cache=sub)
     else:
-        raise _not_ported(f"the {spec.mixer!r} mixer")
+        raise ValueError(spec.mixer)
     if nc is not None:
         new_cache.update(nc)
     x = x + out
 
     if spec.cross_attn:
-        raise _not_ported("cross-attention")
+        hx = _apply_norm(cfg, p["lnx"], x)
+        if mode == "decode":
+            xk, xv = cache["xk"], cache["xv"]
+        else:
+            # project the encoder output once; persist it in the cache
+            xk = _einsum("bsd,dhk->bshk", enc_out,
+                         p["xattn"]["wk"].to(x.dtype))
+            xv = _einsum("bsd,dhk->bshk", enc_out,
+                         p["xattn"]["wv"].to(x.dtype))
+            if new_cache is not None:
+                new_cache["xk"], new_cache["xv"] = xk, xv
+        x = x + _cross_attention(cfg, p["xattn"], hx, xk, xv)
+
     if spec.channel == "mlp":
         h = _apply_norm(cfg, p["ln2"], x)
         mp = tree_map(lambda a: a.to(x.dtype), p["mlp"])
         x = x + apply_mlp(mp, h, cfg.mlp_act)
     elif spec.channel == "moe":
-        raise _not_ported("the MoE channel")
+        h = _apply_norm(cfg, p["ln2"], x)
+        x = x + apply_moe(cfg.moe, p["moe"], h)
     return x, new_cache
 
 
@@ -236,7 +276,8 @@ def _apply_block(cfg: ModelConfig, spec: BlockSpec, p, x, *, positions,
 
 
 def _run_segments(cfg: ModelConfig, params, x, *, positions, mode, caches,
-                  kernel_impl="xla", continuation=False):
+                  prefix_len=None, enc_out=None, kernel_impl="xla",
+                  continuation=False):
     segs = segment_layers(cfg.block_specs())
     new_caches = [] if caches is not None else None
     for si, (block, rep) in enumerate(segs):
@@ -254,13 +295,22 @@ def _run_segments(cfg: ModelConfig, params, x, *, positions, mode, caches,
                 x, c = _apply_block(
                     cfg, spec, p_r[f"b{bi}"], x, positions=positions,
                     mode=mode, cache=(c_r[f"b{bi}"] if c_r else None),
+                    prefix_len=prefix_len, enc_out=enc_out,
                     kernel_impl=kernel_impl, continuation=continuation)
                 if c_r is not None:
-                    # KV leaves come back written in place; the recurrent
-                    # mixers' small states come back new
+                    # KV and latent leaves come back written in place; the
+                    # recurrent mixers' small states and the cross-attention
+                    # K/V come back new.  A new leaf keeps its own dtype, as
+                    # in the reference's cache tree: the cross-attention K/V
+                    # are in the activations' dtype whatever the cache's
                     for k, dst in c_r[f"b{bi}"].items():
-                        if c[k] is not dst:
-                            dst.copy_(c[k])
+                        if c[k] is dst:
+                            continue
+                        if c[k].dtype != dst.dtype:
+                            stack = seg_c[f"b{bi}"]
+                            stack[k] = stack[k].to(c[k].dtype)
+                            dst = c_r[f"b{bi}"][k] = stack[k][r]
+                        dst.copy_(c[k])
         if new_caches is not None:
             new_caches.append(seg_c)
     return x, new_caches
@@ -288,43 +338,88 @@ def _act_dtype(cfg: ModelConfig, x):
     return x.to(torch.bfloat16) if cfg.param_dtype == "bfloat16" else x
 
 
-def _embed(cfg: ModelConfig, params, tokens):
-    if cfg.encoder is not None:
-        raise _not_ported("the encoder")
-    if cfg.vision is not None:
-        raise _not_ported("prefix-LM (the vision prefix)")
-    if "pos_embed" in params:
-        raise _not_ported("learned decoder positions (pos_embed)")
+def _embed(cfg: ModelConfig, params, tokens, positions, prefix_embeds):
     x = params["embed"][tokens.long()]
     if cfg.scale_embed:
         x = _scale_embed(cfg, x)
-    return _act_dtype(cfg, x)
+    if "pos_embed" in params:
+        x = x + params["pos_embed"][positions.long()]
+    x = _act_dtype(cfg, x)
+    prefix_len = None
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+        prefix_len = prefix_embeds.shape[1]
+    return x, prefix_len
+
+
+def encoder_forward(cfg: ModelConfig, params, frames):
+    """Whisper-style encoder over stub frame embeddings (B, n_frames, d).
+
+    Non-causal self-attention through :func:`blockwise_attention` (the
+    reference's default ``kernel_impl``), never the prefill kernel."""
+    e = cfg.encoder
+    p = params["encoder"]
+    x = frames + p["pos"].to(frames.dtype)[None]
+    acfg = cfg.attn.__class__(
+        n_heads=e.n_heads, n_kv_heads=e.n_heads,
+        head_dim=e.d_model // e.n_heads, rope=False, causal=False)
+    positions = torch.arange(e.n_frames, device=frames.device)[None]
+    for r in range(e.n_layers):  # the reference's lax.scan over the stack
+        lp = tree_map(lambda a: a[r], p["layers"])
+        h = _apply_norm(cfg, lp["ln1"], x)
+        out, _ = attention_prefill(acfg, lp["attn"], h, positions,
+                                   local=False)
+        x = x + out
+        h = _apply_norm(cfg, lp["ln2"], x)
+        mp = tree_map(lambda a: a.to(x.dtype), lp["mlp"])
+        x = x + apply_mlp(mp, h, "gelu")
+    return _apply_norm(cfg, p["final_norm"], x)
 
 
 # ------------------------------------------------------------ entry points
 
 
 def forward_prefill(cfg: ModelConfig, params, tokens, positions, caches, *,
-                    kernel_impl="xla", continuation=False):
+                    prefix_embeds=None, enc_frames=None, kernel_impl="xla",
+                    continuation=False):
     """Prefill a chunk; returns (last-position logits, new caches).
 
     positions: (B, S) absolute positions of ``tokens`` (supports chunked /
-    continued prefill).  ``kernel_impl="pallas"`` runs whole-prompt
-    attention through the prefill attention kernel (B2);
-    ``continuation=True`` attends over the cached context.
+    continued prefill).  ``prefix_embeds`` (B, P, d): stub patch
+    embeddings prepended to the chunk, attended bidirectionally, with the
+    tokens' positions shifted by P.  ``enc_frames`` (B, n_frames, d): the
+    encoder's stub frame embeddings, which an encoder-decoder config
+    needs.  ``kernel_impl="pallas"`` runs whole-prompt attention through
+    the prefill attention kernel (B2); ``continuation=True`` attends over
+    the cached context.
     """
+    enc_out = None
+    if cfg.encoder is not None:
+        if enc_frames is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: its prefill "
+                             f"needs enc_frames (B, {cfg.encoder.n_frames}, "
+                             f"{cfg.encoder.d_model}), the encoder's frame "
+                             f"embeddings")
+        enc_out = encoder_forward(cfg, params, enc_frames)
+    x, prefix_len = _embed(cfg, params, tokens, positions, prefix_embeds)
+    if prefix_len:
+        B = tokens.shape[0]
+        pre = torch.arange(prefix_len, dtype=positions.dtype,
+                           device=positions.device)
+        positions = torch.cat([pre[None].expand(B, prefix_len),
+                               positions + prefix_len], dim=1)
     x, new_caches = _run_segments(
-        cfg, params, _embed(cfg, params, tokens), positions=positions,
-        mode="prefill", caches=caches, kernel_impl=kernel_impl,
+        cfg, params, x, positions=positions, mode="prefill", caches=caches,
+        prefix_len=prefix_len, enc_out=enc_out, kernel_impl=kernel_impl,
         continuation=continuation)
     return _logits(cfg, params, x[:, -1:]), new_caches
 
 
 def forward_decode(cfg: ModelConfig, params, tokens, positions, caches):
     """One-token decode. tokens (B, 1); positions (B,) current index."""
-    x, new_caches = _run_segments(cfg, params, _embed(cfg, params, tokens),
-                                  positions=positions, mode="decode",
-                                  caches=caches)
+    x, _ = _embed(cfg, params, tokens, positions[:, None], None)
+    x, new_caches = _run_segments(cfg, params, x, positions=positions,
+                                  mode="decode", caches=caches)
     return _logits(cfg, params, x), new_caches
 
 

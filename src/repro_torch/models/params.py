@@ -64,7 +64,8 @@ def _init_leaf(generator: torch.Generator, d: PDef, dtype, device):
         fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
         scale = d.scale if d.scale is not None else 1.0 / np.sqrt(max(fan_in, 1))
         z = torch.randn(d.shape, generator=generator, device=generator.device)
-        return (float(scale) * z).to(device=device, dtype=dtype)
+        # scaled in place: one f32 copy of the leaf at a time
+        return z.mul_(float(scale)).to(device=device, dtype=dtype)
     if d.init.startswith("const:"):
         return torch.full(d.shape, float(d.init.split(":")[1]), dtype=dtype,
                           device=device)

@@ -2,9 +2,12 @@
 cluster), the calibrated iteration-level cluster engine, and its batched
 trace-replay twins (``ClusterEngineJAX``, streamed ``StreamingEngineJAX``).
 
-The data plane serves the attention (global, local ring and int8
-caches), RG-LRU and SSM mixers; MLA, MoE, cross-attention and prefix-LM
-models raise until the rest of ROADMAP A10.
+The data plane serves every config's mixers and channels: attention
+(global, local ring and int8 caches), MLA (latent and int8 caches),
+RG-LRU, SSM, the MLP and the capacity-dispatch MoE.  The step functions
+take the encoder's frames and the prefix embeddings; the engine, as the
+reference's, passes neither, so it serves prefix-LM models text only and
+refuses an encoder-decoder (ROADMAP C-ref7).
 """
 
 from .cluster import ClusterMetrics, RealCluster  # noqa: F401

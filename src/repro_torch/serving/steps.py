@@ -45,17 +45,22 @@ def init_server_state(cfg: ModelConfig, batch: int, max_len: int,
     }
 
 
-def make_prefill_step(cfg: ModelConfig, *, continuation: bool = False):
-    """Whole-batch prefill: (params, caches, tokens, positions).
+def make_prefill_step(cfg: ModelConfig, *, kernel_impl: str = "xla",
+                      continuation: bool = False):
+    """Whole-batch prefill: (params, caches, tokens, positions, stubs).
 
     ``continuation=True`` gives chunked-prefill semantics (queries attend
     over the cached context) -- the engine's mixed iterations use it.
+    ``kernel_impl="pallas"`` runs a whole-prompt prefill's attention
+    through the prefill attention kernel (B2).
     """
 
-    def prefill_step(params, caches, tokens, positions):
+    def prefill_step(params, caches, tokens, positions, *, enc_frames=None,
+                     prefix_embeds=None):
         logits, caches = M.forward_prefill(
             cfg, params, tokens, positions, caches,
-            continuation=continuation)
+            enc_frames=enc_frames, prefix_embeds=prefix_embeds,
+            kernel_impl=kernel_impl, continuation=continuation)
         return caches, greedy_sample(logits)
 
     return prefill_step
@@ -100,8 +105,9 @@ def make_mixed_step(cfg: ModelConfig, chunk: int):
     while decoding one token on every *other* active slot.
 
     The chunk runs at batch=1 on a cache slice of the slot-structured state;
-    decode masks out the prefilling slot.  Returns (state, decode_tokens,
-    chunk_last_logits_token).
+    decode masks out the prefilling slot.  ``prefix_embeds``, as in the
+    reference, is prepended to every chunk.  Returns (state,
+    decode_tokens, chunk_last_logits_token).
     """
     pf = make_prefill_step(cfg, continuation=True)
     dec = make_decode_step(cfg)
@@ -117,13 +123,15 @@ def make_mixed_step(cfg: ModelConfig, chunk: int):
             return a
         return tree_map(one, tree, sub)
 
-    def mixed_step(params, state, p_slot, chunk_tokens, chunk_pos0):
+    def mixed_step(params, state, p_slot, chunk_tokens, chunk_pos0, *,
+                   enc_frames=None, prefix_embeds=None):
         # --- prefill chunk on the designated slot (batch of 1)
         sub_cache = slice_slot(state["caches"], p_slot)
         positions = chunk_pos0 + torch.arange(
             chunk, dtype=torch.int32, device=chunk_tokens.device)[None, :]
         sub_cache, tok = pf(params, sub_cache, chunk_tokens[None, :],
-                            positions)
+                            positions, enc_frames=enc_frames,
+                            prefix_embeds=prefix_embeds)
         caches = write_slot(state["caches"], sub_cache, p_slot)
 
         # --- decode everyone else

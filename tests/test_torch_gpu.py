@@ -299,21 +299,40 @@ def test_qwen2_serving_decodes_through_b1(cuda):
     assert {k[0] for k in new} == {"float32"}
 
 
+def _stubs(cfg, batch, rng):
+    """The stub inputs ``cfg`` takes, as f32 numpy arrays drawn from
+    ``rng``: patch embeddings for a prefix-LM, frame embeddings for an
+    encoder-decoder.  The CPU parity tests draw theirs here too (this
+    file imports no JAX)."""
+    out = {}
+    if cfg.vision is not None:
+        out["prefix_embeds"] = rng.standard_normal(
+            (batch, cfg.vision.n_patches, cfg.d_model))
+    if cfg.encoder is not None:
+        out["enc_frames"] = rng.standard_normal(
+            (batch, cfg.encoder.n_frames, cfg.encoder.d_model))
+    return {k: v.astype(np.float32) for k, v in out.items()}
+
+
 def _card_and_cpu(cfg, steps, kernel_impl):
     """One model on the CPU and on the card from the same weights: a whole
     prefill of 40 tokens, two 16-token continuation chunks, ``steps``
-    decodes; the logits of every call."""
+    decodes (every prefill with the config's stubs, the decodes past the
+    prefix); the logits of every call."""
     params = M.init_model(cfg, torch.Generator().manual_seed(0),
                           device="cpu")
     rng = np.random.default_rng(1)
+    stubs = {k: torch.from_numpy(v) for k, v in _stubs(cfg, 2, rng).items()}
+    P = cfg.vision.n_patches if cfg.vision is not None else 0
     calls = [(rng.integers(0, cfg.vocab_size, (2, 40)), 0, False)]
     calls += [(rng.integers(0, cfg.vocab_size, (2, 16)), p0, True)
               for p0 in (40, 56)]
-    calls += [(rng.integers(0, cfg.vocab_size, (2, 1)), 72 + i, None)
+    calls += [(rng.integers(0, cfg.vocab_size, (2, 1)), P + 72 + i, None)
               for i in range(steps)]
     out = {}
     for dev in ("cpu", "cuda"):
         p = tree_map(lambda a: a.to(dev), params)
+        kw = {k: v.to(dev) for k, v in stubs.items()}
         caches = M.init_cache(cfg, 2, 96, torch.float32, dev)
         logits = []
         for toks, p0, cont in calls:
@@ -326,17 +345,20 @@ def _card_and_cpu(cfg, steps, kernel_impl):
                                          device=dev))[None].expand(2, -1)
                 lg, caches = M.forward_prefill(
                     cfg, p, t, pos, caches, continuation=cont,
-                    kernel_impl=kernel_impl)
+                    kernel_impl=kernel_impl, **kw)
             logits.append(lg.cpu())
         out[dev] = logits
     return out["cpu"], out["cuda"]
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "gemma2-2b",
-                                  "recurrentgemma-2b"])
+                                  "recurrentgemma-2b", "paligemma-3b",
+                                  "whisper-base", "deepseek-v3-671b",
+                                  "grok-1-314b"])
 def test_attention_models_on_the_card_match_the_cpu(cuda, arch):
     """Past the reduced window (32): the local rings wrap.  The card runs
-    B2 for the whole prefill and B1 for every decode."""
+    B2 for the whole prefill (paligemma's with its prefix mask) and B1
+    for every decode; deepseek-v3's MLA and MoE run no kernel."""
     cfg = get_config(arch, reduced=True)
     n1, n2 = decode_attention.launches, prefill_attention.launches
     cpu, card = _card_and_cpu(cfg, 8, "pallas")
@@ -344,6 +366,109 @@ def test_attention_models_on_the_card_match_the_cpu(cuda, arch):
     assert prefill_attention.launches - n2 == _n_attn(cfg)
     for a, b in zip(cpu, card):
         torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
+
+
+# the shapes chip_smoke.py's phase 10 launches: the engine's decodes at
+# batch cap 4 over 256 slots with f32 caches (paligemma-3b, grok-1-314b,
+# recurrentgemma-2b's local ring), the decodes after the whole-prompt
+# prefills with bf16 caches (paligemma over 256 patches + 512 + 8 tokens,
+# whisper-base's f32 decoder over 448 + 8, grok-1 over 2048 + 8), and
+# those prefills
+A10_DECODE = [("float32", 4, 256, 8, 1, 256, None),
+              ("float32", 4, 256, 48, 8, 128, None),
+              ("float32", 4, 256, 10, 1, 256, 2048),
+              ("bfloat16", 4, 776, 8, 1, 256, None),
+              ("float32", 4, 456, 8, 8, 64, None),
+              ("bfloat16", 4, 2056, 48, 8, 128, None)]
+A10_PREFILL = [("bfloat16", 4, 768, 8, 1, 256, 256),
+               ("bfloat16", 4, 2048, 48, 8, 128, None),
+               ("float32", 4, 448, 8, 8, 64, None)]
+
+
+@pytest.mark.parametrize("dtype,B,S,H,KV,D,window", A10_DECODE)
+def test_decode_kernel_matches_plain_at_a10_shapes(cuda, dtype, B, S, H, KV,
+                                                   D, window):
+    q, k, v = _randn(cuda, dtype, (B, 1, H, D), (B, S, KV, D), (B, S, KV, D))
+    kv_len = torch.tensor([S, S - 1, S // 2, 1], dtype=torch.int32,
+                          device=cuda)
+    kw = {}
+    if window is not None:
+        kw = dict(window=window, q_positions=kv_len - 1,
+                  k_positions=torch.arange(S, dtype=torch.int32, device=cuda
+                                           ).expand(B, S).contiguous())
+    n = decode_attention.launches
+    out = decode_attention(q, k, v, kv_len, **kw)
+    assert decode_attention.launches == n + 1
+    _close(out, decode_attention_plain(q, k, v, kv_len, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype,B,S,H,KV,D,prefix_len", A10_PREFILL)
+def test_prefill_kernel_matches_plain_at_a10_shapes(cuda, dtype, B, S, H, KV,
+                                                    D, prefix_len):
+    """bf16 on the tensor-core route, f32 on the FP32 one; paligemma's
+    with the prefix-LM mask over its 256 patches."""
+    q, k, v = _randn(cuda, dtype, (B, S, H, D), (B, S, KV, D), (B, S, KV, D))
+    route = "launches_tc" if dtype == "bfloat16" else "launches_fp32"
+    n = getattr(prefill_attention, route)
+    out = prefill_attention(q, k, v, prefix_len=prefix_len)
+    assert getattr(prefill_attention, route) == n + 1
+    _close(out, prefill_attention_plain(q, k, v, prefix_len=prefix_len),
+           dtype)
+
+
+@pytest.mark.parametrize("arch", ["grok-1-314b", "deepseek-v3-671b"])
+def test_apply_moe_on_the_card_matches_the_cpu(cuda, arch):
+    """At a capacity factor that drops copies: the card drops the same
+    ones (its scatter-add runs in no fixed order)."""
+    from repro_torch.models.moe import apply_moe, moe_defs
+    from repro_torch.models.params import init_params
+
+    cfg = get_config(arch, reduced=True)
+    moe = cfg.moe.__class__(**{**cfg.moe.__dict__, "capacity_factor": 0.25})
+    p = init_params(moe_defs(moe, cfg.d_model),
+                    torch.Generator().manual_seed(3), device="cpu")
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, 48, cfg.d_model)).astype(np.float32))
+    want = apply_moe(moe, p, x)
+    got = apply_moe(moe, tree_map(lambda a: a.to(cuda), p), x.to(cuda))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_mla_decode_on_the_card_matches_the_cpu(cuda, kv_quant):
+    """MLA's absorbed decode over a latent cache filled by a prefill,
+    int8 latents included: outputs 1e-4, cache leaves equal but for an
+    int8 value one step off where the rounding meets a half."""
+    from repro_torch.models.mla import init_mla_cache, mla_decode, mla_defs
+    from repro_torch.models.params import init_params
+
+    cfg = get_config("deepseek-v3-671b", reduced=True).mla
+    p = init_params(mla_defs(cfg, 64), torch.Generator().manual_seed(5),
+                    device="cpu")
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((4, 1, 64)).astype(np.float32))
+    cache = init_mla_cache(cfg, 4, 48, torch.float32, quant=kv_quant,
+                           device="cpu")
+    cache["c_kv"].copy_(torch.from_numpy(
+        rng.integers(-127, 128, cache["c_kv"].shape) if kv_quant else
+        rng.standard_normal(cache["c_kv"].shape)))
+    cache["k_rope"].copy_(torch.from_numpy(
+        rng.integers(-127, 128, cache["k_rope"].shape) if kv_quant else
+        rng.standard_normal(cache["k_rope"].shape)))
+    for s in ("c_s", "r_s") if kv_quant else ():
+        cache[s].fill_(0.01)
+    pos = torch.tensor([47, 30, 5, 0], dtype=torch.int32)
+    outs = []
+    for dev in ("cpu", cuda):
+        c = tree_map(lambda a: a.clone().to(dev), cache)
+        outs.append(mla_decode(cfg, tree_map(lambda a: a.to(dev), p),
+                               x.to(dev), pos.to(dev), c))
+    (want, wc), (got, gc) = outs
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    for k in wc:
+        diff = (gc[k].cpu().float() - wc[k].float()).abs()
+        assert float(diff.max()) <= (1.0 if wc[k].dtype == torch.int8
+                                     else 1e-4 * float(wc[k].abs().max()))
 
 
 def test_whole_prompt_prefill_runs_b2_on_tensor_cores(cuda):

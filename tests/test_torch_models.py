@@ -1,12 +1,16 @@
 """The port's attention-bearing models held to the JAX package on the CPU.
 
 Reduced qwen2-0.5b, gemma2-2b (local ring + global layers, softcaps),
-phi4-mini-3.8b and recurrentgemma-2b (RG-LRU + local attention) through
-``forward_prefill``/``forward_decode`` of both packages on the same
-weights (carried across by ``params_from_numpy``) and the same tokens,
-numpy draws from fixed seeds.  Prompts run past the reduced windows (32)
-so the local layers' rings wrap.  On the CPU decode attention runs B1's
-plain version and ``kernel_impl="pallas"`` B2's.
+phi4-mini-3.8b and recurrentgemma-2b (RG-LRU + local attention), and the
+four archs of the rest of the data plane: paligemma-3b (prefix-LM over
+stub patch embeddings), whisper-base (encoder, cross-attention, learned
+positions), deepseek-v3-671b (MLA, dense then MoE layers with a shared
+expert) and grok-1-314b (MoE), through ``forward_prefill``/
+``forward_decode`` of both packages on the same weights (carried across
+by ``params_from_numpy``) and the same tokens and stubs, numpy draws
+from fixed seeds.  Prompts run past the reduced windows (32) so the
+local layers' rings wrap.  On the CPU decode attention runs B1's plain
+version and ``kernel_impl="pallas"`` B2's.
 
 Tolerances, relative to the largest magnitude:
 
@@ -31,8 +35,10 @@ from repro.models import model as RM
 from repro_torch.configs import get_config
 from repro_torch.models import model as TM
 from repro_torch.models.params import params_from_numpy
+from test_torch_gpu import _stubs
 
-ARCHS = ["qwen2-0.5b", "gemma2-2b", "phi4-mini-3.8b", "recurrentgemma-2b"]
+ARCHS = ["qwen2-0.5b", "gemma2-2b", "phi4-mini-3.8b", "recurrentgemma-2b",
+         "paligemma-3b", "whisper-base", "deepseek-v3-671b", "grok-1-314b"]
 REL = {"float32": 1e-5, "bfloat16": 5e-2}
 B, MAX_LEN = 2, 96
 
@@ -45,16 +51,20 @@ def _close(got, want, rel):
     np.testing.assert_allclose(got, want, rtol=rel, atol=rel * scale)
 
 
-def _model(arch, param_dtype="float32"):
+def _model(arch, param_dtype="float32", **over):
     ref_cfg = ref_get_config(arch, reduced=True).replace(
-        param_dtype=param_dtype)
-    cfg = get_config(arch, reduced=True).replace(param_dtype=param_dtype)
+        param_dtype=param_dtype, **over)
+    cfg = get_config(arch, reduced=True).replace(param_dtype=param_dtype,
+                                                 **over)
     rp = jax.tree.map(np.asarray, RM.init_model(ref_cfg,
                                                 jax.random.PRNGKey(1)))
     return ref_cfg, cfg, rp, params_from_numpy(rp, "cpu")
 
 
 def _caches_close(got, want, rel):
+    """Every leaf in the reference's dtype: integer leaves equal, f16
+    scales to 2e-3, f32 leaves within ``rel``, bf16 leaves within the bf16
+    tolerance."""
     flat = jax.tree_util.tree_leaves_with_path(want)
     assert len(flat) == len(jax.tree.leaves(got))
     for path, w in flat:
@@ -62,10 +72,15 @@ def _caches_close(got, want, rel):
         for k in path:
             g = g[k.idx if hasattr(k, "idx") else k.key]
         assert tuple(g.shape) == w.shape, path
-        if w.dtype == jnp.int32:
+        assert str(g.dtype).split(".")[-1] == str(w.dtype), path
+        if w.dtype in (jnp.int32, jnp.int8):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        elif w.dtype == jnp.float16:  # int8 caches' scales
+            np.testing.assert_allclose(g.float().numpy(),
+                                       np.asarray(w, np.float32), rtol=2e-3)
+        elif w.dtype == jnp.bfloat16:
+            _close(g, w, REL["bfloat16"])
         else:
-            assert g.dtype == torch.float32
             _close(g, w, rel)
 
 
@@ -77,14 +92,23 @@ def _ref_jit(fn, ref_cfg, unroll, kw):
 
 
 class _Pair:
-    """The same model in both packages, stepped together."""
+    """The same model in both packages, stepped together.  Every prefill
+    takes the config's stubs (the prefix on every chunk, as the mixed
+    step prepends it); decodes run at text positions shifted past the
+    prefix."""
 
-    def __init__(self, arch, param_dtype="float32", unroll=False):
-        self.ref_cfg, self.cfg, self.rp, self.tp = _model(arch, param_dtype)
-        self.rc = RM.init_cache(self.ref_cfg, B, MAX_LEN, jnp.float32)
-        self.tc = TM.init_cache(self.cfg, B, MAX_LEN, torch.float32, "cpu")
+    def __init__(self, arch, param_dtype="float32", unroll=False,
+                 cache_dtype="float32", **over):
+        self.ref_cfg, self.cfg, self.rp, self.tp = _model(arch, param_dtype,
+                                                          **over)
+        self.rc = RM.init_cache(self.ref_cfg, B, MAX_LEN,
+                                jnp.dtype(cache_dtype))
+        self.tc = TM.init_cache(self.cfg, B, MAX_LEN,
+                                getattr(torch, cache_dtype), "cpu")
         self.unroll = unroll
         self.rng = np.random.default_rng(8)
+        self.stubs = _stubs(self.cfg, B, self.rng)
+        self.P = self.cfg.vision.n_patches if self.cfg.vision else 0
 
     def _ref(self, fn, **kw):
         return _ref_jit(fn, self.ref_cfg, self.unroll,
@@ -96,16 +120,18 @@ class _Pair:
         pos = np.broadcast_to(np.arange(pos0, pos0 + S)[None], (B, S)
                               ).astype(np.int32)
         want, self.rc = self._ref(RM.forward_prefill, **kw)(
-            self.rp, jnp.asarray(toks), jnp.asarray(pos), self.rc)
+            self.rp, jnp.asarray(toks), jnp.asarray(pos), self.rc,
+            **{k: jnp.asarray(v) for k, v in self.stubs.items()})
         got, self.tc = TM.forward_prefill(
             self.cfg, self.tp, torch.from_numpy(toks), torch.from_numpy(pos),
-            self.tc, **kw)
+            self.tc, **{k: torch.from_numpy(v) for k, v in self.stubs.items()},
+            **kw)
         return got, want
 
     def decode(self, pos):
         toks = self.rng.integers(0, self.cfg.vocab_size, (B, 1)).astype(
             np.int32)
-        p = np.full((B,), pos, np.int32)
+        p = np.full((B,), self.P + pos, np.int32)
         want, self.rc = self._ref(RM.forward_decode)(
             self.rp, jnp.asarray(toks), jnp.asarray(p), self.rc)
         got, self.tc = TM.forward_decode(
@@ -133,9 +159,10 @@ def test_prefill_and_decode_match_reference_f32(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_and_decode_match_unrolled_reference_bf16(arch):
-    """bf16 activations against f32 caches: the first attention layer
-    promotes the residual stream to f32, as the reference's unrolled
-    form does."""
+    """bf16 activations against f32 caches: the first attention or MLA
+    layer that reads its cache (decode; deepseek's MLA prefill does not)
+    promotes the residual stream to f32, as the reference's unrolled form
+    does."""
     pair = _Pair(arch, "bfloat16", unroll=True)
     got, want = _prefill_then_decode(pair, REL["bfloat16"], steps=3)
     assert want.dtype == jnp.float32 and got.dtype == torch.float32
@@ -154,10 +181,12 @@ def test_chunked_continuation_matches_reference(arch):
     _caches_close(pair.tc, pair.rc, REL["float32"])
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "gemma2-2b"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "gemma2-2b", "paligemma-3b",
+                                  "whisper-base", "grok-1-314b"])
 def test_prefill_pallas_matches_reference(arch):
     """``kernel_impl="pallas"``: B2's plain version on the port's side,
-    the reference's Pallas kernel (interpret mode) on the other."""
+    the reference's Pallas kernel (interpret mode) on the other;
+    paligemma's with its prefix-LM mask over the stub patches."""
     pair = _Pair(arch)
     got, want = pair.prefill(40, kernel_impl="pallas")
     _close(got, want, REL["float32"])
@@ -187,21 +216,40 @@ def test_c_ref5_port_matches_the_unrolled_reference():
     _c_ref5_example(unroll=True)
 
 
-@pytest.mark.parametrize("arch,what", [
-    ("grok-1-314b", "the MoE channel"),
-    ("whisper-base", "cross-attention"),  # encoder-decoder
-    ("paligemma-3b", r"prefix-LM \(the vision prefix\)"),
-], ids=["moe", "encoder", "prefix-lm"])
-def test_parts_not_ported_yet_raise_naming_a10(arch, what):
-    cfg = get_config(arch, reduced=True)
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    pos = torch.arange(4, dtype=torch.int32)[None]
-    with pytest.raises(NotImplementedError,
-                       match=f"^{what} is not ported .*ROADMAP A10"):
-        params = TM.init_model(cfg, torch.Generator().manual_seed(0),
-                               device="cpu")
-        caches = TM.init_cache(cfg, 1, 8, torch.float32, "cpu")
-        TM.forward_prefill(cfg, params, toks, pos, caches)
+def test_mla_int8_latents_match_reference():
+    """deepseek-v3 with ``kv_quant``: int8 latents and RoPE keys with f16
+    per-token scales, through a whole prefill, two continuation chunks
+    and decodes; the int8 values equal, the scales equal to f16."""
+    pair = _Pair("deepseek-v3-671b", kv_quant=True)
+    _close(*pair.prefill(40), REL["float32"])
+    for pos0 in (40, 56):
+        _close(*pair.prefill(16, pos0, continuation=True), REL["float32"])
+    for i in range(3):
+        _close(*pair.decode(72 + i), REL["float32"])
+    leaves = pair.tc[0]["b0"]
+    assert leaves["c_kv"].dtype == torch.int8
+    assert leaves["c_s"].dtype == torch.float16
+    _caches_close(pair.tc, pair.rc, REL["float32"])
+
+
+def test_whisper_bf16_caches_keep_cross_attention_kv_in_f32():
+    """whisper-base's f32 weights over bf16 caches: the self-attention
+    K/V round to the cache's bf16, the cross-attention K/V stay in the
+    activations' f32, as the reference's cache tree holds them, through
+    a whole prefill, two continuation chunks and decodes.  The decodes'
+    logits are held to the bf16 tolerance: the reference rounds the
+    softmax weights to the cache's bf16 before P.V, B1 keeps them f32."""
+    pair = _Pair("whisper-base", cache_dtype="bfloat16")
+    _close(*pair.prefill(40), REL["float32"])
+    for pos0 in (40, 56):
+        _close(*pair.prefill(16, pos0, continuation=True), REL["float32"])
+    leaves = pair.tc[0]["b0"]
+    assert leaves["k"].dtype == torch.bfloat16
+    assert leaves["xk"].dtype == leaves["xv"].dtype == torch.float32
+    _caches_close(pair.tc, pair.rc, REL["float32"])
+    for i in range(3):
+        _close(*pair.decode(72 + i), REL["bfloat16"])
+    _caches_close(pair.tc, pair.rc, REL["bfloat16"])
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -217,13 +265,14 @@ def test_forward_leaves_its_input_caches_as_they_were(arch):
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 40)).astype(
         np.int32))
     pos = torch.arange(40, dtype=torch.int32)[None].expand(B, 40)
-    _, caches = TM.forward_prefill(cfg, params, toks, pos, caches)
+    kw = {k: torch.from_numpy(v) for k, v in _stubs(cfg, B, rng).items()}
+    _, caches = TM.forward_prefill(cfg, params, toks, pos, caches, **kw)
     for call in ("prefill", "decode"):
         before = [{k: {n: a.clone() for n, a in c.items()}
                    for k, c in seg.items()} for seg in caches]
         if call == "prefill":
             _, out = TM.forward_prefill(cfg, params, toks[:, :16], pos[:, :16]
-                                        + 40, caches, continuation=True)
+                                        + 40, caches, continuation=True, **kw)
         else:
             _, out = TM.forward_decode(cfg, params, toks[:, :1],
                                        torch.full((B,), 40, dtype=torch.int32),

@@ -270,10 +270,13 @@ def test_attention_kv_migration_preserves_tokens(arch, kv_quant):
     assert req.out_tokens == req2.out_tokens and len(req.out_tokens) == 8
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ATTN_ARCHS + [
+    "paligemma-3b", "deepseek-v3-671b", "grok-1-314b"])
 def test_attention_real_cluster_matches_the_reference(arch):
     """Prompts of 40 tokens (three chunks, past the reduced window) and 8;
-    the same tokens and ``summary()`` as the JAX ``RealCluster``."""
+    the same tokens and ``summary()`` as the JAX ``RealCluster``.  The
+    engine serves paligemma text only, as the reference's does, and
+    deepseek-v3 through MLA and the MoE."""
     ref_cfg, cfg, rp, tp = _mk(arch)
     spec = [("a", 40, 6, 0.5, 0.1), ("b", 8, 12, 0.5, 0.1)]
     reqs = _requests(cfg.vocab_size, spec, 6, seed=1)

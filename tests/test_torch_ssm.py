@@ -306,9 +306,3 @@ def test_init_params_follows_the_reference_rules():
                                                      rel=0.2)
     again = TM.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
     assert torch.equal(again["embed"], p["embed"])
-
-
-def test_model_raises_for_mixers_not_ported_yet():
-    cfg = get_config("deepseek-v3-671b", reduced=True)  # the mla mixer
-    with pytest.raises(NotImplementedError, match="A10"):
-        TM.init_cache(cfg, 1, 16, torch.float32, "cpu")
