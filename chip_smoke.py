@@ -175,6 +175,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
    CPU on the same weights within 1e-4, over a whole prefill, two
    continuation chunks and 8 decodes.  Phase 10's B1 and B2 launches
    join the kernels line's.
+11. the training path (``[train]`` lines) -- ``forward_train``/
+   ``loss_fn`` under autograd through ``make_train_step``.  (a) B3 under
+   its ``autograd.Function`` at mamba2-130m's training shapes (B=4
+   S=1024 H=24 P=64 N=128), bf16 and f32: y and the state as 3b holds
+   them, every input grad the plain version's autograd grad, one forward
+   launch on the dtype's route and none in the backward.  (b)
+   ``run_training`` on ``preset_100m`` (12 layers, d_model 768, vocab
+   8192) for 60 steps at batch 8 x 256, 2 microbatches, a checkpoint
+   every 30 steps into a temporary directory: the mean loss of the last
+   5 steps must be 0.05 below the first 5's, and a run resumed from the
+   step-30 checkpoint must end within 1e-4 (relative) of the loss at
+   every step it runs.  (c) mamba2-130m at its published width and depth
+   (f32 params, bf16 activations), ``make_train_step(remat=True)``, 8
+   steps at B=4 S=1024: ``ssd_scan`` launches 24 forwards and 24
+   recomputes a step, all tensor-core; step 0's grads are finite and
+   nonzero in every SSM leaf.  Against an all-plain step on the same
+   card and weights: in bf16 the loss within ``TRAIN_BF16_LOSS`` and
+   each grad leaf within ``TRAIN_BF16_GRAD`` (relative L2); the same
+   step with f32 activations (the kernel's f32 route) the loss within
+   1e-5 relative and each grad leaf within ``TRAIN_F32_GRAD``.
+   (d) qwen2-0.5b at its published
+   width and depth, 4 steps at B=4 S=512: finite losses.  (b)-(d) print
+   the step's host ms (untraced), tokens/s, the peak allocated memory
+   and the card's busy time a step over ``torch.profiler``'s window (the
+   tracer's events read raw) with its idle share.  (e) reduced qwen2,
+   mamba2 (the kernel on the card, the plain scan on the CPU),
+   deepseek-v3, whisper and paligemma: one step's loss and every grad on
+   the card within 1e-4 of the CPU's.  (f) ``quantize_int8``/
+   ``dequantize_int8`` on the card equal to the CPU bit for bit, and the
+   compressed psum over a one-rank NCCL group equal to a one-rank gloo
+   group's on the CPU.  (c)'s ``ssd_scan`` launches join the kernels
+   line's.
 
 It then prints the per-kernel JSON line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -334,6 +366,33 @@ A10_WHOLE = {"paligemma-3b": (4, 512), "whisper-base": (4, 448),
              "grok-1-314b": (4, 2048), "deepseek-v3-671b": (4, 2048)}
 A10_STEPS = 8
 CL_LEAD = 5.374133740330568
+# phase 11: the training path.  B3 under autograd at mamba2-130m's shapes
+# (B, S, H, P, N); run_training on preset_100m; (B, S, steps) of the
+# archs trained at their published width and depth; the reduced configs
+# held card against CPU; the card-vs-CPU grads' limit (f32, summation
+# order only)
+TRAIN_SSD = (4, 1024, 24, 64, 128)
+TRAIN_100M = dict(steps=60, batch=8, seq_len=256, microbatches=2,
+                  ckpt_every=30)
+TRAIN_FULL = {"mamba2-130m": (4, 1024, 8), "qwen2-0.5b": (4, 512, 4)}
+TRAIN_REDUCED = ("qwen2-0.5b", "mamba2-130m", "deepseek-v3-671b",
+                 "whisper-base", "paligemma-3b")
+TRAIN_REL = 1e-4
+# (c)'s kernel step against the all-plain step.  With bf16 activations
+# the two round at different points, and bf16 noise grows with depth: at
+# mamba2-130m's width, S=1024 and a 64-token chunk, the reference's own
+# bf16 grads lie up to 8.2%, 14.6% and 32.0% (relative L2, per leaf) from
+# its f32 grads over 4, 8 and 16 layers, the port's up to 6.7%, 13.1% and
+# 30.2%, the port's bf16 grads up to 28.3% from the reference's over 16
+# (tests/torch_bf16_grad_gap.py, on the CPU).  A leaf whose gradient
+# path were lost would be ~100% off.  The loss at random init sits near
+# ln V, so its bf16 limit is absolute, five times the two steps'
+# difference on the card (4.3e-4).  In f32 the two steps differ by
+# summation order alone.
+TRAIN_BF16_GRAD = 0.3
+TRAIN_BF16_LOSS = 2e-3
+TRAIN_F32_GRAD = 1e-3
+TRAIN_F32_LOSS = 1e-5
 
 
 def _nvidia_smi() -> str:
@@ -2426,6 +2485,478 @@ def check_a10(torch, smi: str):
     return rows, total
 
 
+# ---------------------------------------------------------------- phase 11
+
+
+def _leaf_items(tree):
+    """(path, tensor) of every leaf of a dict tree, in sorted-key order."""
+    from repro_torch.models.params import tree_flatten
+    for path, leaf in tree_flatten(tree):
+        yield "/".join(path), leaf
+
+
+def _grads_close(torch, got, want, rel, what):
+    """Every leaf |got - want| <= rel (|want| + max |want|); returns the
+    largest error over the leaf's largest magnitude."""
+    worst = 0.0
+    for (path, g), (_, w) in zip(_leaf_items(got), _leaf_items(want)):
+        g, w = g.float().cpu(), w.float().cpu()
+        scale = float(w.abs().max())
+        err = (g - w).abs()
+        if not bool((err <= rel * (w.abs() + scale)).all()):
+            raise AssertionError(f"{what}: grad {path} max abs err "
+                                 f"{float(err.max())} beyond {rel} x "
+                                 f"(|want| + {scale})")
+        worst = max(worst, float(err.max()) / max(scale, 1e-30))
+    return worst
+
+
+def _train_window(torch, step_fn, state, batch, n_timed, n_prof, tag, smi):
+    """``n_timed`` steps timed on the host clock (each synchronised), then
+    ``n_prof`` under ``torch.profiler``, each inside a ``train.step``
+    range that ends after a synchronise.  Prints step ms, tokens/s, the
+    peak allocated memory (reset before the timed steps), the card's
+    busy time a step (its kernels inside the ranges, the tracer's events
+    read raw) and its idle share against the untraced step.  Returns the
+    state, the losses and ``ssd_scan``'s launches of each step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
+    tokens = batch["tokens"].numel()
+    losses, scans, walls = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    started = False
+    try:
+        for i in range(n_timed + n_prof):
+            if i == n_timed:
+                prof.start()
+                started = True
+            n = ssd_scan.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with record_function("train.step"):
+                state, m = step_fn(state, batch)
+                losses.append(float(m["loss"]))  # waits for the step
+                torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            scans.append(ssd_scan.launches - n)
+    finally:
+        if started:
+            prof.stop()  # never leave the tracer running
+    peak = torch.cuda.max_memory_allocated()
+    raw = prof.profiler.kineto_results.events()
+    t00 = min(e.start_ns() for e in raw)
+    events = [(e.name(), e.device_type(), (e.start_ns() - t00) / 1e3,
+               (e.end_ns() - t00) / 1e3) for e in raw]
+    kernels = sorted((e[2], e[3]) for e in events
+                     if e[1] == DeviceType.CUDA and e[0] != "train.step")
+    ranges = sorted((e[2], e[3]) for e in events
+                    if e[0] == "train.step" and e[1] == DeviceType.CPU)
+    if len(ranges) != n_prof or not kernels:
+        raise AssertionError(f"[train] {tag}: the trace holds {len(ranges)} "
+                             f"train.step ranges and {len(kernels)} device "
+                             f"events")
+    busy = _busy_us(kernels, ranges) / 1e3 / n_prof  # ms a step
+    span = sum(r1 - r0 for r0, r1 in ranges) / 1e3 / n_prof
+    timed = sorted(walls[:n_timed])
+    step_ms = 1e3 * timed[len(timed) // 2]
+    print(f"[train] {tag}: step ms (median of {n_timed} untraced) "
+          f"{step_ms!r}, all {[1e3 * w for w in walls[:n_timed]]!r}; "
+          f"tokens/s {tokens / step_ms * 1e3!r} ({tokens} tokens a step); "
+          f"peak allocated {peak} bytes; card busy a step {busy!r} ms over "
+          f"{n_prof} traced steps ({span!r} ms traced span): idle "
+          f"{1 - busy / step_ms!r} of the untraced step, "
+          f"{1 - busy / span!r} of the traced one ({smi})")
+    return state, losses, scans
+
+
+def _wall_ms(torch, fn, reps=5):
+    """Median host ms of ``fn`` between synchronises, after a warm-up."""
+    fn()
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return 1e3 * sorted(walls)[reps // 2]
+
+
+def _ssd_autograd_check(torch):
+    """(a) B3 under autograd at mamba2-130m's training shapes against the
+    plain version: y and the state at 3b's tolerances, every input grad
+    at the kernel's tolerance, one forward launch on the dtype's route."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
+    from repro_torch.telemetry.timing import timeit_median_cuda
+
+    B, S, H, P, N = TRAIN_SSD
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for dt in (torch.bfloat16, torch.float32):
+        dname = str(dt).split(".")[-1]
+        kind = "tc" if dt == torch.bfloat16 else "fp32"
+
+        def rnd(*shape, dtype=dt, scale=1.0):
+            return scale * torch.randn(*shape, generator=gen, device="cuda",
+                                       dtype=torch.float32).to(dtype)
+
+        ins = [rnd(B, S, H, P), rnd(B, S, N, scale=0.5),
+               rnd(B, S, N, scale=0.5),
+               -0.1 * rnd(B, S, H, dtype=torch.float32).abs()]
+        a = [t.clone().requires_grad_() for t in ins]
+        b = [t.clone().requires_grad_() for t in ins]
+        n = getattr(ssd_scan, f"launches_{kind}")
+        y, h = ssd_scan(*a)
+        if getattr(ssd_scan, f"launches_{kind}") != n + 1 \
+                or y.grad_fn is None:
+            raise AssertionError(f"ssd_scan {dname}: no {kind} launch under "
+                                 f"autograd")
+        yp, hp = ssd_scan_plain(*b)
+        desc = f"B={B} S={S} H={H} P={P} N={N} autograd"
+        y_err = _check(torch, "ssd_scan y", y, yp, dname, desc,
+                       SSD_Y_TOL[dname])
+        h_err = _check(torch, "ssd_scan state", h, hp, "float32", desc)
+        gy = rnd(*y.shape)
+        gh = rnd(*h.shape, dtype=torch.float32)
+        ((y.float() * gy.float()).sum() + (h * gh).sum()).backward()
+        ((yp.float() * gy.float()).sum() + (hp * gh).sum()).backward()
+        if getattr(ssd_scan, f"launches_{kind}") != n + 1:
+            raise AssertionError("ssd_scan's backward launched the kernel")
+        g_err = [_check(torch, f"ssd_scan grad {i}", t.grad, w.grad,
+                        "float32" if t.dtype == torch.float32 else dname,
+                        desc) for i, (t, w) in enumerate(zip(a, b))]
+        print(f"[train] (a) ssd_scan {dname} {desc} ({kind}, 1 forward "
+              f"launch, backward by the plain version): y err {y_err!r}, "
+              f"state err {h_err!r}, input grads err "
+              f"{dict(zip(('x', 'B', 'C', 'log_a'), g_err))!r}")
+
+        def fwd_bwd(fn):
+            def run():
+                xs = [t.detach().requires_grad_() for t in ins]
+                torch.autograd.grad(fn(*xs)[0], xs, gy)
+            return run
+
+        bytes_, flops = _ssd_work(ins[0], N, torch.finfo(dt).bits // 8,
+                                  False)
+        bound, by = _bound(dname, bytes_, flops)
+        ms = timeit_median_cuda(lambda: ssd_scan(*ins)) * 1e3
+        plain_ms = timeit_median_cuda(_graphed(
+            torch, lambda: ssd_scan_plain(*ins))) * 1e3
+        print(f"[train] (a) ssd_scan {dname} {desc} forward: ms={ms!r} "
+              f"plain_ms={plain_ms!r} (CUDA graph) bound_ms={bound!r} "
+              f"({by}); forward + backward (host wall, synchronised, "
+              f"median of 5): kernel {_wall_ms(torch, fwd_bwd(ssd_scan))!r} "
+              f"ms, all plain {_wall_ms(torch, fwd_bwd(ssd_scan_plain))!r} ms")
+
+
+def _train_batch(torch, cfg, B, S, cursor=0):
+    from repro_torch.training import DataConfig, SyntheticLM
+
+    b = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, batch=B,
+                               seq_len=S)).batch_at(cursor)
+    return {k: torch.from_numpy(v).to("cuda") for k, v in b.items()}
+
+
+def _train_100m(torch, smi):
+    """(b) ``run_training`` on ``preset_100m``: the loss falls, and a run
+    resumed from the step-30 checkpoint ends at the same loss."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.train import preset_100m, run_training
+    from repro_torch.training import OptConfig, init_train_state, \
+        make_train_step
+
+    cfg = preset_100m()
+    kw = dict(TRAIN_100M, device="cuda", log_every=10)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        full = run_training(cfg, ckpt_dir=f"{d}/a", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = full["losses"]
+        first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+        print(f"[train] (b) preset_100m ({cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, vocab {cfg.vocab_size}): {len(losses)} steps "
+              f"at batch {kw['batch']} x {kw['seq_len']}, "
+              f"{kw['microbatches']} microbatches, checkpoints every "
+              f"{kw['ckpt_every']}, in {wall:.1f} s (checkpoints included); "
+              f"mean loss of the first 5 {first!r}, of the last 5 {last!r}")
+        if not last < first - 0.05:
+            raise AssertionError(f"preset_100m: the loss did not fall "
+                                 f"({first} -> {last})")
+        half = kw["steps"] // 2
+        shutil.copytree(f"{d}/a/step_{half:08d}", f"{d}/b/step_{half:08d}")
+        shutil.rmtree(f"{d}/a")
+        t0 = time.perf_counter()
+        resumed = run_training(cfg, ckpt_dir=f"{d}/b", **kw)
+        wall = time.perf_counter() - t0
+    rel = [abs(a - b) / abs(b) for a, b in zip(resumed["losses"],
+                                                losses[half:])]
+    print(f"[train] (b) resumed from step {half} in {wall:.1f} s: final "
+          f"loss {resumed['final_loss']!r} vs {full['final_loss']!r}, "
+          f"largest relative loss difference over steps {half}-"
+          f"{kw['steps'] - 1}: {max(rel)!r}")
+    if len(resumed["losses"]) != kw["steps"] - half or max(rel) > 1e-4:
+        raise AssertionError("preset_100m: the resumed run departs from "
+                             "the uninterrupted one beyond 1e-4")
+    opt = OptConfig(lr=3e-4, warmup_steps=20, total_steps=kw["steps"])
+    state = init_train_state(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0), opt, device="cuda")
+    step_fn = make_train_step(cfg, opt, microbatches=kw["microbatches"],
+                              remat=True)
+    batch = _train_batch(torch, cfg, kw["batch"], kw["seq_len"])
+    state, _ = step_fn(state, batch)  # warm-up
+    _train_window(torch, step_fn, state, batch, 3, 2, "(b) preset_100m",
+                  smi)
+
+
+def _train_full(torch, arch, smi):
+    """(c)/(d) ``arch`` at its published width and depth: f32 params,
+    activations in the config's ``param_dtype``, ``make_train_step(remat=
+    True)``.  Returns ``ssd_scan``'s launches over the steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
+    from repro_torch.training import OptConfig, make_train_step
+    from repro_torch.training.optimizer import opt_init
+    from repro_torch.training.train_step import make_loss, value_and_grad
+
+    cfg = get_config(arch)
+    B, S, steps = TRAIN_FULL[arch]
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          dtype=torch.float32, device="cuda")
+    opt = OptConfig(lr=3e-4, warmup_steps=2, total_steps=steps)
+    state = {"params": params, "opt": opt_init(params, opt)}
+    batch = _train_batch(torch, cfg, B, S)
+    n_ssm = sum(s.mixer == "ssm" for s in cfg.block_specs())
+    print(f"[train] {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab_size}, {M.param_count(cfg)} parameters in f32, "
+          f"activations in {cfg.param_dtype}; B={B} S={S}, {steps} steps "
+          f"({smi})")
+    if n_ssm:
+        # step 0's loss and grads through the kernel and all plain
+        n, tc = ssd_scan.launches, ssd_scan.launches_tc
+        loss, grads = value_and_grad(make_loss(cfg, remat=True), params,
+                                     batch)
+        if ssd_scan.launches - n != 2 * n_ssm \
+                or ssd_scan.launches_tc - tc != 2 * n_ssm:
+            raise AssertionError(f"{arch}: ssd_scan launched "
+                                 f"{ssd_scan.launches - n} times "
+                                 f"({ssd_scan.launches_tc - tc} tc) in a "
+                                 f"remat step, expected 2 x {n_ssm} on the "
+                                 f"tensor-core route")
+        for path, g in _leaf_items(grads):
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"{arch}: grad {path} not finite")
+            if "/ssm/" in path and not bool(g.any()):
+                raise AssertionError(f"{arch}: SSM grad {path} is all zero")
+        # the same step through the kernel's f32 route, and both all plain
+        cfg32 = cfg.replace(param_dtype="float32")
+        loss_32, grads_32 = value_and_grad(make_loss(cfg32, remat=True),
+                                           params, batch)
+        kernel_scan = ssm.ssd_scan
+        ssm.ssd_scan = ssd_scan_plain
+        try:
+            loss_p, grads_p = value_and_grad(make_loss(cfg, remat=True),
+                                             params, batch)
+            loss_32p, grads_32p = value_and_grad(
+                make_loss(cfg32, remat=True), params, batch)
+        finally:
+            ssm.ssd_scan = kernel_scan
+        if ssd_scan.launches - n != 4 * n_ssm:
+            raise AssertionError("an all-plain step launched the kernel")
+
+        def l2(a, b):
+            return float((a.float() - b.float()).norm() / b.float().norm())
+
+        items = [_leaf_items(t) for t in (grads, grads_p, grads_32,
+                                          grads_32p)]
+        rows = sorted(((path, l2(g, w), l2(g32, w32), l2(g, g32),
+                        l2(w, w32))
+                       for (path, g), (_, w), (_, g32), (_, w32)
+                       in zip(*items)), key=lambda r: -r[1])
+        for path, d16, d32, k32, p32 in rows[:6]:
+            print(f"[train] (c) {arch} grad {path}: kernel vs all-plain L2 "
+                  f"bf16 {d16!r}, f32 {d32!r}; bf16 from f32: kernel "
+                  f"{k32!r}, all-plain {p32!r}")
+        d16, d32 = max(r[1] for r in rows), max(r[2] for r in rows)
+        print(f"[train] (c) {arch} over all {len(rows)} leaves, kernel vs "
+              f"all-plain L2 at most bf16 {d16!r} (limit {TRAIN_BF16_GRAD}),"
+              f" f32 {d32!r} (limit {TRAIN_F32_GRAD}); bf16 from f32 at "
+              f"most kernel {max(r[3] for r in rows)!r}, all-plain "
+              f"{max(r[4] for r in rows)!r}; loss kernel {float(loss)!r}, "
+              f"all-plain {float(loss_p)!r} (limit {TRAIN_BF16_LOSS}), f32 "
+              f"kernel {float(loss_32)!r}, all-plain {float(loss_32p)!r} "
+              f"(limit {TRAIN_F32_LOSS} relative), ln V "
+              f"{math.log(cfg.vocab_size)!r}")
+        for path, d16, d32, _, _ in rows:
+            if d16 > TRAIN_BF16_GRAD or d32 > TRAIN_F32_GRAD:
+                raise AssertionError(
+                    f"{arch}: grad {path} kernel vs all-plain L2 bf16 {d16} "
+                    f"(limit {TRAIN_BF16_GRAD}), f32 {d32} (limit "
+                    f"{TRAIN_F32_GRAD})")
+        if abs(float(loss) - float(loss_p)) > TRAIN_BF16_LOSS:
+            raise AssertionError(f"{arch}: bf16 loss {float(loss)} vs "
+                                 f"all-plain {float(loss_p)}")
+        if abs(float(loss_32) - float(loss_32p)) > TRAIN_F32_LOSS * abs(
+                float(loss_32p)):
+            raise AssertionError(f"{arch}: f32 loss {float(loss_32)} vs "
+                                 f"all-plain {float(loss_32p)}")
+        n_ssm_leaves = sum("/ssm/" in p for p, _ in _leaf_items(grads))
+        print(f"[train] (c) {arch} step 0 through the kernel: every grad "
+              f"finite, all {n_ssm_leaves} SSM leaves nonzero, the loss "
+              f"and every grad leaf within the limits of the all-plain "
+              f"step's in bf16 and f32; ssd_scan {2 * n_ssm} launches "
+              f"({n_ssm} forward + {n_ssm} recompute) a step, all "
+              f"tensor-core in bf16")
+        del grads, grads_p, grads_32, grads_32p
+    step_fn = make_train_step(cfg, opt, remat=True)
+    _zero_counts()
+    state, m = step_fn(state, batch)  # warm-up, counted
+    scans = [ssd_scan.launches]
+    n_prof = 1 if steps <= 4 else 3
+    state, losses, more = _train_window(
+        torch, step_fn, state, batch, steps - 1 - n_prof, n_prof,
+        f"({'c' if n_ssm else 'd'}) {arch}", smi)
+    losses = [float(m["loss"])] + losses
+    scans += more
+    print(f"[train] {arch}: losses {losses!r}"
+          + (f"; ssd_scan launches a step (forward + recompute) {scans}"
+             if n_ssm else ""))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{arch}: a loss is not finite")
+    if n_ssm and scans != [2 * n_ssm] * steps:
+        raise AssertionError(f"{arch}: ssd_scan launched {scans} times a "
+                             f"step, expected {2 * n_ssm}")
+    return sum(scans)
+
+
+def _train_reduced_matches_cpu(torch):
+    """(e) One train step's loss and grads of each reduced config on the
+    card against the CPU on the same weights, within 1e-4."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_map
+    from repro_torch.training.train_step import make_loss, value_and_grad
+
+    for arch in TRAIN_REDUCED:
+        cfg = get_config(arch, reduced=True)
+        params = M.init_model(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+        rng = np.random.default_rng(0)
+        batch = {k: torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (2, 32)).astype(np.int32))
+            for k in ("tokens", "labels")}
+        batch.update(_stubs(torch, cfg, 2, torch.Generator().manual_seed(1)))
+        out = {}
+        for dev in ("cpu", "cuda"):
+            out[dev] = value_and_grad(
+                make_loss(cfg, remat=True),
+                tree_map(lambda a: a.to(dev), params),
+                {k: v.to(dev) for k, v in batch.items()})
+        (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+        worst = _grads_close(torch, gg, gc, TRAIN_REL, f"reduced {arch}")
+        if abs(float(lg) - float(lc)) > TRAIN_REL * abs(float(lc)):
+            raise AssertionError(f"reduced {arch}: loss {float(lg)} vs CPU "
+                                 f"{float(lc)}")
+        print(f"[train] (e) reduced {arch} on the card matches the CPU: "
+              f"loss {float(lg)!r} vs {float(lc)!r}, largest grad error "
+              f"{worst!r} of the leaf's max (limit {TRAIN_REL})")
+
+
+def _train_compress(torch):
+    """(f) int8 quantisation on the card equal to the CPU's bit for bit;
+    the compressed psum over a one-rank NCCL group equal to the same
+    over a one-rank gloo group on the CPU."""
+    import socket
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from repro_torch.training.compress import (dequantize_int8,
+                                               make_compressed_psum,
+                                               quantize_int8)
+
+    gen = torch.Generator().manual_seed(12)
+    xs = [torch.randn(4096, 768, generator=gen),
+          1e-3 * torch.randn(50280, generator=gen),
+          300.0 * torch.randn(3, 5, 7, generator=gen)]
+    for x in xs:
+        q, s = quantize_int8(x.cuda())
+        qc, sc = quantize_int8(x)
+        back, back_c = dequantize_int8(q, s), dequantize_int8(qc, sc)
+        if not (torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc)
+                and torch.equal(back.cpu(), back_c)):
+            raise AssertionError(f"quantize_int8 {tuple(x.shape)}: the card "
+                                 f"differs from the CPU")
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1,
+                            timeout=timedelta(seconds=120))
+    try:
+        gloo = dist.new_group(backend="gloo")
+        grads = {"a": xs[0], "b": {"c": xs[1]}}
+        res = {"a": 1e-3 * torch.randn(4096, 768, generator=gen),
+               "b": {"c": torch.zeros(50280)}}
+        to = lambda t, dev: {k: to(v, dev) if isinstance(v, dict)  # noqa
+                             else v.to(dev) for k, v in t.items()}
+        mean, new_r = make_compressed_psum()(to(grads, "cuda"),
+                                             to(res, "cuda"))
+        mean_c, new_r_c = make_compressed_psum(gloo)(grads, res)
+        for got, want in ((mean, mean_c), (new_r, new_r_c)):
+            for (path, g), (_, w) in zip(_leaf_items(got), _leaf_items(want)):
+                if not torch.equal(g.cpu(), w):
+                    raise AssertionError(f"compressed psum {path}: NCCL on "
+                                         f"the card differs from gloo on "
+                                         f"the CPU")
+    finally:
+        dist.destroy_process_group()
+    print(f"[train] (f) quantize_int8/dequantize_int8 on the card equal the "
+          f"CPU's bit for bit at {[tuple(x.shape) for x in xs]}; the "
+          f"compressed psum over a one-rank NCCL group equals a one-rank "
+          f"gloo group's on the CPU bit for bit")
+
+
+def check_train(torch, smi: str) -> int:
+    """Phase 11: the training path.  (a) B3 under autograd; (b)
+    ``run_training`` on ``preset_100m`` with a resume; (c) mamba2-130m and
+    (d) qwen2-0.5b at published width and depth; (e) reduced configs card
+    against CPU; (f) int8 compression.  Returns (c)'s ``ssd_scan``
+    launches."""
+    import gc
+
+    t0 = time.perf_counter()
+    _ssd_autograd_check(torch)
+    print(f"[train] (a) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _train_100m(torch, smi)
+    print(f"[train] (b) in {time.perf_counter() - t0:.1f} s")
+    launches = 0
+    for arch in TRAIN_FULL:
+        t0 = time.perf_counter()
+        launches += _train_full(torch, arch, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[train] {arch} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _train_reduced_matches_cpu(torch)
+    print(f"[train] (e) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _train_compress(torch)
+    print(f"[train] (f) in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2569,6 +3100,11 @@ def main() -> int:
         rows[k] += rs
         launches[k] += a10_launches[k]
     print(f"[a10] phase 10 in {time.perf_counter() - t0:.1f} s ({smi})")
+
+    # 11. the training path
+    t0 = time.perf_counter()
+    launches["ssd_scan"] += check_train(torch, smi)
+    print(f"[train] phase 11 in {time.perf_counter() - t0:.1f} s ({smi})")
 
     # the main path's largest shape per kernel stands for it in the line
     main_shape = {"decode_attention": "B=16 S=512 main",

@@ -1,0 +1,3 @@
+"""Checkpointing substrate."""
+
+from .manager import CheckpointManager  # noqa: F401

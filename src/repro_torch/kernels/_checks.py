@@ -28,6 +28,18 @@ def check_tensors(where: str, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{where}: unsupported device {t0.device}")
 
 
+def refuse_grad(where: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would need this function's backward: it has
+    none, in the reference or here, and a result without ``grad_fn``
+    would drop the gradient without a word.  Checked on every device, so
+    the plain version on the CPU refuses what the kernel would."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{where} has no backward: call it under torch.no_grad() or on "
+            f"inputs that do not require grad (training attends through "
+            f"models.attention.blockwise_attention)")
+
+
 def check_launch(where: str, err: int) -> None:
     """Raise on the ``cudaError_t`` a C entry point returned."""
     if err != 0:

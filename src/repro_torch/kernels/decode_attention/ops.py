@@ -26,7 +26,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..build import load
-from .._checks import DTYPE_CODES, check_launch, check_tensors
+from .._checks import DTYPE_CODES, check_launch, check_tensors, refuse_grad
 
 __all__ = ["DecodePlan", "decode_attention", "decode_attention_plain",
            "decode_plan"]
@@ -160,9 +160,11 @@ def decode_attention(q, k_cache, v_cache, kv_len, *,
     CUDA tensors launch the kernel (``csrc/decode_attention.cu``); CPU
     tensors run :func:`decode_attention_plain`.  Launches count in
     ``decode_attention.launches`` and, by route (dtype, ``decode_plan``),
-    in the counter ``decode_attention.routes``.
+    in the counter ``decode_attention.routes``.  It has no backward, so
+    it refuses inputs that require grad while grad mode is on.
     """
     check_tensors("decode_attention", q, k_cache, v_cache)
+    refuse_grad("decode_attention", q, k_cache, v_cache)
     if q.dim() != 4 or q.shape[1] != 1 or k_cache.dim() != 4 \
             or k_cache.shape != v_cache.shape \
             or k_cache.shape[0] != q.shape[0] \

@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 
 from ..build import load
-from .._checks import DTYPE_CODES, check_launch, check_tensors
+from .._checks import DTYPE_CODES, check_launch, check_tensors, refuse_grad
 
 __all__ = ["prefill_attention", "prefill_attention_plain"]
 
@@ -75,9 +75,12 @@ def prefill_attention(q, k, v, *, causal: bool = True,
     f32 to its 3e-5).  CPU tensors run :func:`prefill_attention_plain`.
     Launches count in ``prefill_attention.launches``, by route in
     ``prefill_attention.launches_tc`` and ``launches_fp32``, and by
-    ``prefix_len`` in the counter ``prefill_attention.prefix_lens``.
+    ``prefix_len`` in the counter ``prefill_attention.prefix_lens``.  It
+    has no backward, so it refuses inputs that require grad while grad
+    mode is on.
     """
     check_tensors("prefill_attention", q, k, v)
+    refuse_grad("prefill_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
             or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3] \
             or q.shape[2] % k.shape[2]:

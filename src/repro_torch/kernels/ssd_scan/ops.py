@@ -170,7 +170,9 @@ def ssd_scan(x_dt, Bm, Cm, log_a, *, initial_state=None):
     tensor-core route as :func:`ssd_plan` splits it, f32 the FP32-pipe
     kernel (TF32 would not hold f32 to its 3e-5).  CPU tensors run
     :func:`ssd_scan_plain`.  Calls count in ``ssd_scan.launches`` and, by
-    route, in ``ssd_scan.launches_tc`` and ``launches_fp32``.
+    route, in ``ssd_scan.launches_tc`` and ``launches_fp32``.  On CUDA
+    the launch runs under autograd (``_SSDScan``): gradients flow to
+    every input that requires them, by the plain version's backward.
     """
     check_tensors("ssd_scan", x_dt, Bm, Cm)
     if x_dt.dim() != 4 or Bm.dim() != 3 or Bm.shape != Cm.shape \
@@ -201,6 +203,13 @@ def ssd_scan(x_dt, Bm, Cm, log_a, *, initial_state=None):
     if Bsz == 0 or S == 0 or H == 0:
         raise ValueError(f"ssd_scan: empty input (B={Bsz}, S={S}, H={H}) "
                          f"has nothing to launch")
+    return _SSDScan.apply(x_dt, Bm, Cm, log_a, initial_state)
+
+
+def _launch(x_dt, Bm, Cm, log_a, initial_state):
+    """The kernels on checked CUDA inputs; counts the launch."""
+    Bsz, S, H, P = x_dt.shape
+    N = Bm.shape[-1]
     dev = x_dt.device
     y = torch.empty_like(x_dt)
     h_out = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=dev)
@@ -231,6 +240,42 @@ def ssd_scan(x_dt, Bm, Cm, log_a, *, initial_state=None):
     else:
         ssd_scan.launches_fp32 += 1
     return y, h_out
+
+
+class _SSDScan(torch.autograd.Function):
+    """The kernels under autograd.  The forward is the CUDA launch; the
+    backward recomputes :func:`ssd_scan_plain` on the saved inputs and
+    returns its input gradients: the reference trains through its own
+    chunk loop (``models/ssm.py``), whose gradient this is, and has no
+    backward kernel.  Only forwards launch, so only forwards count (a
+    checkpointed layer's recompute is a forward and counts)."""
+
+    @staticmethod
+    def forward(ctx, x_dt, Bm, Cm, log_a, initial_state):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x_dt, Bm, Cm, log_a, initial_state)
+        return _launch(x_dt, Bm, Cm, log_a, initial_state)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        saved = ctx.saved_tensors
+        wanted = [i for i, t in enumerate(saved)
+                  if t is not None and ctx.needs_input_grad[i]]
+        if not wanted or (gy is None and gh is None):
+            return (None,) * len(saved)
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(i in wanted)
+                      if t is not None else None
+                      for i, t in enumerate(saved)]
+            y, h = ssd_scan_plain(*inputs[:4], initial_state=inputs[4])
+            outs = [(o, g) for o, g in ((y, gy), (h, gh)) if g is not None]
+            grads = torch.autograd.grad(
+                [o for o, _ in outs], [inputs[i] for i in wanted],
+                [g for _, g in outs], allow_unused=True)
+        out = [None] * len(saved)
+        for i, g in zip(wanted, grads):
+            out[i] = g
+        return tuple(out)
 
 
 ssd_scan.launches = 0

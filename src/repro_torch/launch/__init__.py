@@ -1,1 +1,1 @@
-"""Hardware tables for the roofline terms (the mesh factories are not ported)."""
+"""Entry points (serve, train) and the hardware and mesh tables."""

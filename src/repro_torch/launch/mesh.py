@@ -7,6 +7,10 @@ card being timed, keyed on its name, from NVIDIA's data sheets (dense
 bf16 tensor-core rate, HBM bandwidth).  An unknown card raises: a
 measured iteration time never mixes in another part's figures.
 
+The production meshes of training (:func:`make_production_mesh`) are the
+reference's shapes as :class:`repro_torch.compat.Mesh` records, which
+hold no devices: the sharding rules read their axis sizes.
+
 The sweep's cell placement lives here too, as in the reference: for
 simulation the unit of parallelism is a grid cell (one (mix, policy, n,
 seed) replication), and the batch engines split their cell batch over a
@@ -25,9 +29,18 @@ from typing import Callable, Optional, Sequence, Union
 import torch
 from torch.utils import _pytree as pytree
 
+from ..compat import Mesh, make_mesh
+
 __all__ = ["CPU_STAND_IN", "GPU_TABLES", "cells_mesh", "gpu_constants",
-           "gpu_table", "hw_record", "shard_cells", "shard_cells_fn",
-           "v5e_constants"]
+           "gpu_table", "hw_record", "make_production_mesh", "shard_cells",
+           "shard_cells_fn", "v5e_constants"]
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """16x16 single-pod (256 chips) or 2x16x16 multi-pod (512 chips)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes)
 
 
 def v5e_constants() -> dict:

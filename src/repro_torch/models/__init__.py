@@ -2,7 +2,8 @@
 
 The forwards serve every mixer of the ten configs (``attn``/
 ``attn_local``, ``mla``, ``rec``, ``ssm``), the MLP and MoE channels,
-cross-attention with the encoder and prefix-LM; training is ROADMAP A12.
+cross-attention with the encoder and prefix-LM; ``forward_train`` and
+``loss_fn`` train them under autograd.
 """
 
 from .config import ModelConfig  # noqa: F401
@@ -11,8 +12,10 @@ from .model import (  # noqa: F401
     encoder_forward,
     forward_decode,
     forward_prefill,
+    forward_train,
     init_cache,
     init_model,
+    loss_fn,
     model_defs,
     param_count,
 )

@@ -8,8 +8,10 @@ dim, and the forward loops over it in Python (the reference's
 ``lax.scan``).  Parameter trees keep the reference's leaf paths
 (``seg0/b0/ssm/w_in``, ...).
 
-Entry points of the serving path:
+Three entry points, matching the serving/training split of the paper:
 
+* :func:`forward_train` -- teacher-forced logits over a full sequence
+  (and :func:`loss_fn`, its cross entropy with the MTP head).
 * :func:`forward_prefill` -- full/chunked prefill that writes caches and
   returns the last-position logits.
 * :func:`forward_decode` -- one-token decode step over the caches.
@@ -21,13 +23,18 @@ decoder block; prefix-LM (paligemma) prepends stub patch embeddings with
 a bidirectional prefix mask.  The loop over layers is the reference's
 ``unroll=True`` form, whose semantics the port keeps where its scanned
 form refuses a residual stream that changes dtype (bf16 activations
-against f32 caches, ROADMAP C-ref5).  Training is ROADMAP A12.
+against f32 caches, ROADMAP C-ref5).  Training runs the same loop under
+autograd, without caches; ``remat=True`` checkpoints each repeat of a
+segment (``torch.utils.checkpoint``, plain recompute: the reference's
+``jax.checkpoint`` with a saving policy, which changes memory and time,
+never the numbers).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..compat import resolve_device
 from .attention import _einsum, attention_decode, attention_prefill, \
@@ -41,8 +48,8 @@ from .rglru import init_rglru_cache, rglru_decode, rglru_defs, rglru_forward
 from .ssm import init_ssm_cache, ssm_decode, ssm_defs, ssm_forward
 
 __all__ = ["model_defs", "param_count", "active_param_count", "init_cache",
-           "forward_prefill", "forward_decode", "encoder_forward",
-           "init_model"]
+           "forward_train", "forward_prefill", "forward_decode", "loss_fn",
+           "encoder_forward", "init_model"]
 
 
 # ------------------------------------------------------------------ norms
@@ -202,7 +209,10 @@ def _cross_attention(cfg: ModelConfig, p, x, xk, xv):
 def _apply_block(cfg: ModelConfig, spec: BlockSpec, p, x, *, positions,
                  mode, cache, prefix_len=None, enc_out=None,
                  kernel_impl="xla", continuation=False):
-    """One layer. mode: "prefill" | "decode"."""
+    """One layer. mode: "train" | "prefill" | "decode".  "train" is
+    "prefill" with no cache: attention runs :func:`blockwise_attention`
+    (``kernel_impl="xla"``, the reference's training default), and no
+    cache is written."""
     h = _apply_norm(cfg, p["ln1"], x)
     new_cache = dict(cache) if cache is not None else None
     if spec.mixer in ("attn", "attn_local"):
@@ -277,8 +287,10 @@ def _apply_block(cfg: ModelConfig, spec: BlockSpec, p, x, *, positions,
 
 def _run_segments(cfg: ModelConfig, params, x, *, positions, mode, caches,
                   prefix_len=None, enc_out=None, kernel_impl="xla",
-                  continuation=False):
+                  continuation=False, remat=False):
     segs = segment_layers(cfg.block_specs())
+    if mode == "train" and caches is not None:
+        raise ValueError("train mode takes no caches: it writes none")
     new_caches = [] if caches is not None else None
     for si, (block, rep) in enumerate(segs):
         seg_p = params[f"seg{si}"]
@@ -291,26 +303,35 @@ def _run_segments(cfg: ModelConfig, params, x, *, positions, mode, caches,
             p_r = tree_map(lambda a: a[r], seg_p)
             c_r = tree_map(lambda a: a[r], seg_c) if seg_c is not None \
                 else None
-            for bi, spec in enumerate(block):
-                x, c = _apply_block(
-                    cfg, spec, p_r[f"b{bi}"], x, positions=positions,
-                    mode=mode, cache=(c_r[f"b{bi}"] if c_r else None),
-                    prefix_len=prefix_len, enc_out=enc_out,
-                    kernel_impl=kernel_impl, continuation=continuation)
-                if c_r is not None:
-                    # KV and latent leaves come back written in place; the
-                    # recurrent mixers' small states and the cross-attention
-                    # K/V come back new.  A new leaf keeps its own dtype, as
-                    # in the reference's cache tree: the cross-attention K/V
-                    # are in the activations' dtype whatever the cache's
-                    for k, dst in c_r[f"b{bi}"].items():
-                        if c[k] is dst:
-                            continue
-                        if c[k].dtype != dst.dtype:
-                            stack = seg_c[f"b{bi}"]
-                            stack[k] = stack[k].to(c[k].dtype)
-                            dst = c_r[f"b{bi}"][k] = stack[k][r]
-                        dst.copy_(c[k])
+
+            def body(x, p_r=p_r, c_r=c_r, r=r):
+                for bi, spec in enumerate(block):
+                    x, c = _apply_block(
+                        cfg, spec, p_r[f"b{bi}"], x, positions=positions,
+                        mode=mode, cache=(c_r[f"b{bi}"] if c_r else None),
+                        prefix_len=prefix_len, enc_out=enc_out,
+                        kernel_impl=kernel_impl, continuation=continuation)
+                    if c_r is not None:
+                        # KV and latent leaves come back written in place;
+                        # the recurrent mixers' small states and the
+                        # cross-attention K/V come back new.  A new leaf
+                        # keeps its own dtype, as in the reference's cache
+                        # tree: the cross-attention K/V are in the
+                        # activations' dtype whatever the cache's
+                        for k, dst in c_r[f"b{bi}"].items():
+                            if c[k] is dst:
+                                continue
+                            if c[k].dtype != dst.dtype:
+                                stack = seg_c[f"b{bi}"]
+                                stack[k] = stack[k].to(c[k].dtype)
+                                dst = c_r[f"b{bi}"][k] = stack[k][r]
+                            dst.copy_(c[k])
+                return x
+
+            # ``remat``: the reference's ``jax.checkpoint`` around the body,
+            # as plain recompute
+            x = (checkpoint(body, x, use_reentrant=False) if remat
+                 else body(x))
         if new_caches is not None:
             new_caches.append(seg_c)
     return x, new_caches
@@ -379,6 +400,73 @@ def encoder_forward(cfg: ModelConfig, params, frames):
 # ------------------------------------------------------------ entry points
 
 
+def _encode(cfg: ModelConfig, params, enc_frames, what: str):
+    if cfg.encoder is None:
+        return None
+    if enc_frames is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: its {what} "
+                         f"needs enc_frames (B, {cfg.encoder.n_frames}, "
+                         f"{cfg.encoder.d_model}), the encoder's frame "
+                         f"embeddings")
+    return encoder_forward(cfg, params, enc_frames)
+
+
+def forward_train(cfg: ModelConfig, params, tokens, *, prefix_embeds=None,
+                  enc_frames=None, remat=False):
+    """Teacher-forced logits (B, S, V) and the final hidden states
+    (B, S, d), the prefix dropped from both.  ``remat=True`` recomputes
+    each repeat of a segment in the backward pass instead of keeping its
+    activations."""
+    B, S = tokens.shape
+    enc_out = _encode(cfg, params, enc_frames, "forward")
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    x, prefix_len = _embed(cfg, params, tokens, positions, prefix_embeds)
+    if prefix_len:
+        positions = torch.arange(x.shape[1], device=tokens.device)[
+            None].expand(B, x.shape[1])
+    x, _ = _run_segments(cfg, params, x, positions=positions, mode="train",
+                         caches=None, prefix_len=prefix_len, enc_out=enc_out,
+                         remat=remat)
+    if prefix_len:
+        x = x[:, prefix_len:]
+    return _logits(cfg, params, x), x
+
+
+def _nll(logits, lab, mask):
+    """Masked mean of -log softmax(logits)[lab], the logits in f32."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def loss_fn(cfg: ModelConfig, params, tokens, labels, *, prefix_embeds=None,
+            enc_frames=None, remat=False):
+    """Mean next-token cross entropy; labels < 0 are masked out.
+
+    With ``cfg.mtp`` adds DeepSeek-V3-style multi-token prediction: a
+    second head predicts token t+2 from [hidden_t ; embed(label_t)], with
+    weight 0.3.
+    """
+    logits, hidden = forward_train(
+        cfg, params, tokens, prefix_embeds=prefix_embeds,
+        enc_frames=enc_frames, remat=remat)
+    mask = (labels >= 0).float()
+    lab = labels.clamp_min(0).long()
+    loss = _nll(logits, lab, mask)
+    if cfg.mtp:
+        # predict labels shifted one more step (t+2 target from position t)
+        emb_next = params["embed"][lab]
+        if cfg.scale_embed:
+            emb_next = _scale_embed(cfg, emb_next)
+        h2 = torch.cat([hidden, emb_next.to(hidden.dtype)], dim=-1)
+        h2 = h2 @ params["mtp"]["proj"].to(hidden.dtype)
+        h2 = _apply_norm(cfg, params["mtp"]["norm"], h2)
+        lab2 = torch.cat([lab[:, 1:], torch.zeros_like(lab[:, :1])], dim=1)
+        mask2 = torch.cat([mask[:, 1:], torch.zeros_like(mask[:, :1])], dim=1)
+        loss = loss + 0.3 * _nll(_logits(cfg, params, h2), lab2, mask2)
+    return loss
+
+
 def forward_prefill(cfg: ModelConfig, params, tokens, positions, caches, *,
                     prefix_embeds=None, enc_frames=None, kernel_impl="xla",
                     continuation=False):
@@ -393,14 +481,7 @@ def forward_prefill(cfg: ModelConfig, params, tokens, positions, caches, *,
     the prefill attention kernel (B2); ``continuation=True`` attends over
     the cached context.
     """
-    enc_out = None
-    if cfg.encoder is not None:
-        if enc_frames is None:
-            raise ValueError(f"{cfg.name} is an encoder-decoder: its prefill "
-                             f"needs enc_frames (B, {cfg.encoder.n_frames}, "
-                             f"{cfg.encoder.d_model}), the encoder's frame "
-                             f"embeddings")
-        enc_out = encoder_forward(cfg, params, enc_frames)
+    enc_out = _encode(cfg, params, enc_frames, "prefill")
     x, prefix_len = _embed(cfg, params, tokens, positions, prefix_embeds)
     if prefix_len:
         B = tokens.shape[0]

@@ -137,6 +137,22 @@ def plan_shards(n_cells: int, *, n_devices: Optional[int] = None,
     return ShardPlan(n_cells=int(n_cells), n_devices=d, per_device=per)
 
 
+def _warn_serialized(n_devices: int) -> None:
+    """Once per process: a shard_map placement that landed on one device
+    is a correct but serial run.  Shares the ``"shard-serial"`` guard
+    (:func:`repro_torch.compat.warn_once`), as the reference does, so
+    the condition warns once no matter which layer detects it."""
+    from repro_torch.compat import warn_once
+
+    warn_once(
+        "shard-serial",
+        f"placement='shard_map' is running on a 1-device mesh "
+        f"({n_devices} device): results are exact but the batch is not "
+        f"partitioned -- pass more devices (cells_mesh(n) on a host with "
+        f"n cards, or devices=[...])",
+        stacklevel=4)
+
+
 def pad_batch(batched, padded: int):
     """Pad every leaf of ``batched`` along axis 0 to length ``padded`` by
     repeating item 0 (a real cell: its padding lanes compute valid,
@@ -168,7 +184,8 @@ def run_sharded(kernel, replicated, batched, *,
     output pytree with a leading axis of exactly ``n_cells`` (padding
     masked off, tiles concatenated on the host as CPU tensors),
     ``report`` is the :meth:`ShardPlan.report` dict plus the serialized
-    flag (one device: a correct run that splits nothing).
+    flag (one device: a correct run that splits nothing, which also warns
+    once per process).
     """
     from repro_torch.launch.mesh import cells_mesh, shard_cells_fn
 
@@ -190,6 +207,8 @@ def run_sharded(kernel, replicated, batched, *,
     if plan.n_devices != len(devices):
         raise ValueError(f"plan is for {plan.n_devices} devices, "
                          f"{len(devices)} given")
+    if plan.n_devices == 1:
+        _warn_serialized(plan.n_devices)
 
     fn = shard_cells_fn(kernel, devices=devices)
     full = pad_batch(batched, plan.padded)

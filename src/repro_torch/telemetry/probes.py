@@ -26,6 +26,7 @@ import torch
 
 __all__ = [
     "CTMC_PROBE_KEYS",
+    "DERIVED_METRICS",
     "PROBES",
     "ProbeDef",
     "ProbeSpec",
@@ -137,6 +138,11 @@ PROBES: Dict[str, ProbeDef] = {
 # trajectory probes the aggregate CTMC engine can also fill (it has no
 # per-request identity, so the hist/admit probes do not exist there)
 CTMC_PROBE_KEYS = ("tlm_q", "tlm_occ", "tlm_pf", "tlm_drop", "tlm_ev")
+
+# derived scalar metrics the sweep evaluators / closed loop add to cell
+# results when telemetry is on (the reference's docs checker accepts
+# these next to the carry keys)
+DERIVED_METRICS = ("tlm_events", "tlm_drops", "tlm_ttft_p95")
 
 
 def hist_edges(spec: ProbeSpec) -> np.ndarray:

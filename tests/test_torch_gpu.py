@@ -963,3 +963,88 @@ def test_sweep_engine_jax_on_the_card_matches_the_cpu(cuda):
                 assert a.metrics[k] == v, k
             elif np.isfinite(v):
                 assert a.metrics[k] == pytest.approx(v, rel=ENGINE_RTOL), k
+
+
+# ---------------------------------------------------------- training path
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("with_state", [False, True])
+def test_ssd_scan_autograd_gives_the_plain_grads(cuda, dtype, with_state):
+    """B3 under autograd: y and the state as the plain version's, and
+    every input's grad the plain version's autograd grad (its backward
+    is the plain version's, on the same inputs); one forward launch."""
+    ins = list(_scan_inputs(cuda, dtype, 2, 300, 4, 64, 128))
+    if with_state:
+        ins.append(_randn(cuda, "float32", (2, 4, 64, 128), seed=9)[0])
+    a = [t.clone().requires_grad_() for t in ins]
+    b = [t.clone().requires_grad_() for t in ins]
+    h0a, h0b = (a[4], b[4]) if with_state else (None, None)
+    n = ssd_scan.launches
+    y, h = ssd_scan(*a[:4], initial_state=h0a)
+    assert ssd_scan.launches == n + 1
+    assert y.grad_fn is not None and h.grad_fn is not None
+    yp, hp = ssd_scan_plain(*b[:4], initial_state=h0b)
+    atol, rtol = SSD_Y_TOL[dtype]
+    torch.testing.assert_close(y.float(), yp.float(), atol=atol, rtol=rtol)
+    _close(h, hp, "float32")
+    gy = _randn(cuda, dtype, tuple(y.shape), seed=11)[0]
+    gh = _randn(cuda, "float32", tuple(h.shape), seed=12)[0]
+    ((y.float() * gy.float()).sum() + (h * gh).sum()).backward()
+    ((yp.float() * gy.float()).sum() + (hp * gh).sum()).backward()
+    assert ssd_scan.launches == n + 1  # the backward launches nothing
+    for t, w in zip(a, b):
+        assert t.grad is not None and torch.isfinite(t.grad).all()
+        _close(t.grad, w.grad, dtype)
+
+
+def test_attention_kernels_refuse_grad_on_the_card(cuda):
+    q, k, v = _randn(cuda, "bfloat16", (2, 64, 4, 64), (2, 64, 2, 64),
+                     (2, 64, 2, 64))
+    with pytest.raises(RuntimeError, match="no backward"):
+        prefill_attention(q.requires_grad_(), k, v)
+    with torch.no_grad():
+        n = prefill_attention.launches
+        prefill_attention(q, k, v)
+        assert prefill_attention.launches == n + 1
+    qd = _randn(cuda, "bfloat16", (2, 1, 4, 64))[0].requires_grad_()
+    kv_len = torch.tensor([64, 30], dtype=torch.int32, device=cuda)
+    n = decode_attention.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        decode_attention(qd, k, v, kv_len)
+    assert decode_attention.launches == n
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "qwen2-0.5b"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """One remat train step of the reduced config on the same weights:
+    loss and every grad within 1e-4 of the CPU's (the plain versions);
+    mamba2's scan launches once per SSM layer forward and again in the
+    recompute."""
+    from repro_torch.training import OptConfig, make_train_step
+    from repro_torch.training.optimizer import opt_init
+    from repro_torch.training.train_step import make_loss, value_and_grad
+
+    cfg = get_config(arch, reduced=True)
+    params = M.init_model(cfg, torch.Generator().manual_seed(0),
+                          device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32))
+        for k in ("tokens", "labels")}
+    got = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda a: a.to(dev), params)
+        bt = {k: v.to(dev) for k, v in batch.items()}
+        n = ssd_scan.launches
+        got[str(dev)] = value_and_grad(make_loss(cfg, remat=True), p, bt)
+        if dev == cuda and arch == "mamba2-130m":
+            assert ssd_scan.launches - n == 2 * cfg.n_layers
+        state = {"params": p, "opt": opt_init(p, OptConfig())}
+        _, m = make_train_step(cfg, OptConfig())(state, bt)
+        assert torch.isfinite(m["loss"])
+    (lc, gc), (lg, gg) = got["cpu"], got[str(cuda)]
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+    tree_map(lambda a, b: torch.testing.assert_close(
+        b.cpu(), a, atol=1e-4 * float(a.abs().max()) + 1e-12, rtol=1e-4),
+        gc, gg)

@@ -11,6 +11,8 @@ kernel and with the real engines; the ``single`` / ``vmap`` /
 cells.  The same placements on the card are ``tests/test_torch_gpu.py``'s.
 """
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -117,6 +119,40 @@ def test_run_sharded_checks_its_plan_and_devices():
                     plan=plan_shards(4, n_devices=3))
     with pytest.raises(ValueError, match="empty"):
         run_sharded(_toy, rep, {}, devices=["cpu"])
+
+
+def test_run_sharded_warns_once_on_one_device():
+    """The twin of ``tests/test_sharded.py``'s one-device test: the
+    serial run warns once per process, under the ``"shard-serial"`` kind
+    it shares with every layer that detects it, then stays quiet."""
+    from repro_torch import compat
+
+    rep = {"w": torch.tensor(1.5, dtype=torch.float64),
+           "b": torch.tensor(-0.25, dtype=torch.float64)}
+    batch = (torch.arange(5) * 7 + 3,
+             torch.linspace(0, 1, 20, dtype=torch.float64).reshape(5, 4))
+    want = _toy(rep, batch)
+    compat.reset_warn_once("shard-serial")
+    with pytest.warns(RuntimeWarning, match="1-device mesh"):
+        raw, report = run_sharded(_toy, rep, batch, devices=["cpu"])
+    assert report["serialized"] and report["n_devices"] == 1
+    for key in want:
+        assert torch.equal(raw[key], want[key]), key
+
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        run_sharded(_toy, rep, batch, devices=["cpu"])
+        assert not compat.warn_once("shard-serial", "spent")
+    assert not [x for x in w if issubclass(x.category, RuntimeWarning)]
+    # more than one device is a partitioned run: no warning
+    compat.reset_warn_once("shard-serial")
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        run_sharded(_toy, rep, batch, devices=["cpu"] * 2)
+    assert not [x for x in w if issubclass(x.category, RuntimeWarning)]
+    with pytest.warns(RuntimeWarning, match="re-armed"):
+        assert compat.warn_once("shard-serial", "re-armed")
+    compat.reset_warn_once()
 
 
 def test_shard_cells_is_strict_and_keeps_cell_order():

@@ -157,3 +157,11 @@ def test_cli_report_writes_the_reference_trace(tmp_path):
     (rec,) = port_manifest.read_records(m)
     assert port_manifest.validate_record(rec) == []
     assert rec["artifacts"] == {str(a): port_manifest.file_digest(a)}
+
+
+def test_derived_metrics_are_the_reference():
+    from repro.telemetry import probes as ref_probes
+    from repro_torch.telemetry import probes as port_probes
+
+    assert port_probes.DERIVED_METRICS == ref_probes.DERIVED_METRICS
+    assert port_probes.CTMC_PROBE_KEYS == ref_probes.CTMC_PROBE_KEYS
