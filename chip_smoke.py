@@ -207,6 +207,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    compressed psum over a one-rank NCCL group equal to a one-rank gloo
    group's on the CPU.  (c)'s ``ssd_scan`` launches join the kernels
    line's.
+12. the dry run, the roofline and the examples (``[dry]`` lines) -- (a)
+   ``repro_torch.launch.dryrun.run_cell`` over the single-pod mesh's 40
+   cells (baseline strategy) in worker processes, each traced on the
+   meta device into a temporary directory: 33 must be ``ok`` and 7
+   long_500k cells skipped with the reference's reason; prints each
+   cell's wall time, global and per-device FLOPs and bytes, argument GiB
+   a device and dominant roofline term at the H100 SXM's table, then the
+   roofline table (``render_table``) and ``perf_loop`` on qwen2-0.5b's
+   decode_32k over baseline, kv_heads and kv_int8.  (b) qwen2-0.5b at its
+   published width, bf16 params and full random bf16 caches, through
+   ``make_decode_step(masked=False)`` at decode_32k's S=32768, at the
+   largest batch of 128, 64, 32, 16, 8 whose state, one step and its
+   ``masked=True`` twin fit: B1 once per layer per step, and the new
+   state equal to the twin's bit for bit; prints the step's device time
+   beside the dry run's memory term for the same shapes at the card's
+   table, and B1 at that shape against its plain version (a row of the
+   kernels line's B1).  (c) the six ``examples/torch_*.py`` at their
+   reference defaults: the host's three (quickstart, elastic_failover,
+   online_adaptive) in the pool beside (a), the card's three in this
+   process; ``ctmc_scan`` must launch in ``torch_ctmc_jax_demo`` and B1
+   in ``torch_serve_cluster``.  (b)'s and (c)'s B1 launches join the
+   kernels line's.
 
 It then prints the per-kernel JSON line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -393,6 +415,20 @@ TRAIN_BF16_GRAD = 0.3
 TRAIN_BF16_LOSS = 2e-3
 TRAIN_F32_GRAD = 1e-3
 TRAIN_F32_LOSS = 1e-5
+# phase 12: the dry run over the single-pod mesh's 40 cells (33 traced,
+# 7 skipped with the reference's reason), the cell the perf loop runs
+# over three strategies, the batches (b) tries at decode_32k (largest
+# first), and the examples: the host's run in worker processes beside
+# the dry run, the card's in this process with the launch counts
+DRY_OK, DRY_SKIPS = 33, 7
+DRY_SKIP = ("pure full-attention arch: 500k decode needs sub-quadratic "
+            "attention")
+PERF_LOOP = ("qwen2-0.5b", "decode_32k", "baseline,kv_heads,kv_int8")
+DECODE_32K_BATCHES = (128, 64, 32, 16, 8)
+HOST_EXAMPLES = ("torch_quickstart", "torch_elastic_failover",
+                 "torch_online_adaptive")
+CARD_EXAMPLES = ("torch_ctmc_jax_demo", "torch_engine_jax_demo",
+                 "torch_serve_cluster")
 
 
 def _nvidia_smi() -> str:
@@ -2957,6 +2993,268 @@ def check_train(torch, smi: str) -> int:
     return launches
 
 
+# ---------------------------------------------------------------- phase 12
+def _dry_cell(arch: str, shape: str, out_dir: str) -> tuple:
+    """One dry-run cell, in a worker process: (record, wall s)."""
+    from repro_torch.launch.dryrun import run_cell
+
+    t0 = time.perf_counter()
+    rec = run_cell(arch, shape, multi_pod=False, out_dir=Path(out_dir))
+    return rec, time.perf_counter() - t0
+
+
+def _run_example(name: str) -> tuple:
+    """``examples/<name>.py`` at its reference defaults (the serving
+    example with no arguments): (its output, wall s)."""
+    import contextlib
+    import importlib.util
+    import io
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        mod.main(*([[]] if name == "torch_serve_cluster" else []))
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+def _decode_32k(torch, smi: str) -> tuple:
+    """Phase 12 (b): qwen2-0.5b at its published width, bf16 params and
+    caches, through ``make_decode_step(masked=False)`` at decode_32k's
+    S=32768 over full random caches, at the largest batch of
+    ``DECODE_32K_BATCHES`` whose state, the ``masked=True`` twin's
+    output and one unmasked step's output fit.  Returns (B1 row,
+    launches)."""
+    import gc
+
+    from repro_torch.compat import make_mesh
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.launch.dryrun import analyze_cell
+    from repro_torch.launch.roofline import hw_constants
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_flatten
+    from repro_torch.serving.steps import make_decode_step
+    from repro_torch.telemetry.timing import timeit_median_cuda
+
+    def ms(fn):
+        return timeit_median_cuda(fn) * 1e3
+
+    cfg = get_config(ARCH)
+    S = SHAPES["decode_32k"].seq_len
+    n_attn = _n_attn(cfg)
+    H, KV, D = cfg.attn.n_heads, cfg.attn.n_kv_heads, cfg.attn.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    params = M.init_model(cfg, gen, torch.bfloat16, "cuda")
+    unmasked, masked = make_decode_step(cfg, masked=False), \
+        make_decode_step(cfg)
+    for B in DECODE_32K_BATCHES:
+        state = out = twin = None
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            caches = M.init_cache(cfg, B, S, torch.bfloat16, "cuda")
+            for path, leaf in tree_flatten(caches):
+                if path[-1] == "pos":  # slot i holds position i
+                    leaf.copy_(torch.arange(S, dtype=torch.int32,
+                                            device="cuda").expand_as(leaf))
+                else:
+                    leaf.normal_(generator=gen)
+            state = {"caches": caches,
+                     "length": torch.full((B,), S - 1, dtype=torch.int32,
+                                          device="cuda"),
+                     "last_token": torch.randint(
+                         2, cfg.vocab_size, (B,), generator=gen,
+                         device="cuda", dtype=torch.int32),
+                     "active": torch.ones(B, dtype=torch.bool,
+                                          device="cuda")}
+            _zero_counts()
+            # the twin first: its merge holds a third copy of the caches
+            # for a moment, before the unmasked step's output exists
+            twin = masked(params, state)
+            torch.cuda.synchronize()
+            out = unmasked(params, state)
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError:
+            pass
+        # outside the handler, so the traceback's frames are gone
+        state = out = twin = caches = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[dry] (b) B={B} at S={S} does not fit one card")
+    else:
+        raise AssertionError("phase 12 (b): no batch fits")
+    launches = decode_attention.launches
+    routes = dict(decode_attention.routes)
+    if launches != 2 * n_attn:
+        raise AssertionError(f"phase 12 (b): B1 launched {launches} times "
+                             f"for 2 steps x {n_attn} attention layers")
+    (new, tok), (new_m, tok_m) = out, twin
+    # a layer at a time: a whole leaf's temporaries would not fit
+    same = torch.equal(tok, tok_m) and all(
+        pa == pb and a.shape == b.shape
+        and all(torch.equal(x, y) for x, y in zip(a, b))
+        for (pa, a), (pb, b) in zip(tree_flatten(new), tree_flatten(new_m)))
+    if not same:
+        raise AssertionError("phase 12 (b): masked=False's new state "
+                             "differs from masked=True's with every slot "
+                             "active")
+    if not all(bool(torch.isfinite(x).all()) for _, leaf in
+               tree_flatten(new["caches"]) if leaf.is_floating_point()
+               for x in leaf):
+        raise AssertionError("phase 12 (b): non-finite caches")
+    print(f"[dry] (b) {ARCH} decode B={B} S={S} (the largest of "
+          f"{DECODE_32K_BATCHES} whose state, masked twin and step fit), "
+          f"peak allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+          f"GB: B1 {launches} launches = 2 steps x {n_attn} layers "
+          f"({_b1_routes()}); masked=False's state equals masked=True's "
+          f"bit for bit")
+    del new_m, tok_m, twin, out, new, tok
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a step queues more kernels than the card's launch queue holds, so
+    # its reps are queued behind the spin as replays of one CUDA graph
+    replay = _graphed(torch, lambda: unmasked(params, state))
+    step_ms = ms(replay)
+    del replay
+    hw = hw_constants("h100")
+    rec = analyze_cell(get_config(ARCH), "decode_32k",
+                       make_mesh((1, 1), ("data", "model")), strategy={},
+                       global_batch=B)
+    ex = rec["extrapolated"]
+    mem_ms = ex["bytes"] / hw["hbm_bw"] * 1e3
+    ideal_ms = rec["memory"]["argument_bytes"] / hw["hbm_bw"] * 1e3
+    print(f"[dry] (b) step device ms {step_ms!r} (median of 5 replays of "
+          f"its CUDA graph, spin-queued) "
+          f"beside the dry run's memory term {mem_ms!r} ms ({ex['bytes']!r} "
+          f"bytes) and its state streamed once {ideal_ms!r} ms "
+          f"(argument bytes {rec['memory']['argument_bytes']}), compute "
+          f"term {ex['flops'] / hw['peak_flops_bf16'] * 1e3!r} ms, at the "
+          f"H100 SXM's table ({smi})")
+    del state, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    # B1 at this shape against its plain version
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    args = (torch.randn(B, 1, H, D, generator=gen, device="cuda",
+                        dtype=torch.bfloat16),
+            torch.randn(B, S, KV, D, generator=gen, device="cuda",
+                        dtype=torch.bfloat16),
+            torch.randn(B, S, KV, D, generator=gen, device="cuda",
+                        dtype=torch.bfloat16),
+            torch.full((B,), S, dtype=torch.int32, device="cuda"))
+    row = _decode_row(torch, ms, n_sm, "bfloat16",
+                      f"B={B} S={S} decode_32k", args, {}, B * S)
+    row["launches"] = routes.get(("bfloat16", row["plan"]), 0)
+    if row["launches"] != launches:
+        raise AssertionError(f"phase 12 (b): B1's plan at the checked shape "
+                             f"is not the step's: {routes}")
+    _print_rows({"decode_attention": [row]}, "dry")
+    return row, launches
+
+
+def check_dryrun(torch, smi: str) -> tuple:
+    """Phase 12: (a) the dry run over the single-pod mesh's 40 cells in
+    worker processes, the roofline at the card's table and the perf loop;
+    (b) qwen2-0.5b's decode at S=32768 through ``make_decode_step(
+    masked=False)``; (c) the six examples at their reference defaults.
+    Returns (B1 row, B1 launches, ctmc_scan launches)."""
+    import multiprocessing
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.kernels.ctmc_scan.ops import ctmc_scan
+    from repro_torch.launch import perf_loop
+    from repro_torch.launch.roofline import (hw_constants, load_records,
+                                             render_table, roofline_terms)
+
+    hw = hw_constants("h100")
+    ctx = multiprocessing.get_context("spawn")
+    workers = max(2, min(7, (os.cpu_count() or 2) - 1))
+    # the costliest cells first, so the pool ends together
+    order = {"prefill_32k": 0, "train_4k": 1, "decode_32k": 2, "long_500k": 3}
+    cells = sorted(((a, s) for a in ARCHS for s in SHAPES),
+                   key=lambda c: order[c[1]])
+    with tempfile.TemporaryDirectory() as tmp, ProcessPoolExecutor(
+            max_workers=workers, mp_context=ctx) as pool:
+        t0 = time.perf_counter()
+        host = {nm: pool.submit(_run_example, nm) for nm in HOST_EXAMPLES}
+        dry = {c: pool.submit(_dry_cell, *c, tmp) for c in cells}
+        # (b) and the card's examples while the pool traces
+        t1 = time.perf_counter()
+        row, b1 = _decode_32k(torch, smi)
+        print(f"[dry] (b) in {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        ctmc = 0
+        for nm in CARD_EXAMPLES:
+            _zero_counts()
+            ctmc_scan.launches = 0
+            text, wall = _run_example(nm)
+            counts = {**_counts(), "ctmc_scan": ctmc_scan.launches}
+            for ln in text.splitlines():
+                print(f"[dry] (c) {nm}: {ln}")
+            print(f"[dry] (c) {nm} on the card in {wall:.1f} s; launches "
+                  f"{counts}")
+            if nm == "torch_ctmc_jax_demo":
+                ctmc = counts["ctmc_scan"]
+            if nm == "torch_serve_cluster":
+                b1 += counts["decode_attention"]
+            need = {"torch_ctmc_jax_demo": "ctmc_scan",
+                    "torch_serve_cluster": "decode_attention"}.get(nm)
+            if need and counts[need] <= 0:
+                raise AssertionError(f"phase 12 (c): {nm} never launched "
+                                     f"{need}")
+        print(f"[dry] (c) card examples in {time.perf_counter() - t1:.1f} s")
+        recs = {}
+        for (a, s), fut in dry.items():
+            rec, wall = fut.result()
+            recs[a, s] = rec
+            if "skipped" in rec:
+                print(f"[dry] (a) {a} x {s}: {wall:.2f} s SKIP "
+                      f"{rec['skipped']}")
+                continue
+            if not rec.get("ok"):
+                raise AssertionError(f"phase 12 (a): {a} x {s} failed: "
+                                     f"{rec.get('error')}\n"
+                                     f"{rec.get('traceback')}")
+            ex = rec["extrapolated"]
+            t = roofline_terms(rec, hw)
+            print(f"[dry] (a) {a} x {s}: {wall:.2f} s, flops "
+                  f"{ex['flops_global']:.6e} global / {ex['flops']:.6e} a "
+                  f"device, bytes {ex['bytes_global']:.6e} / "
+                  f"{ex['bytes']:.6e}, coll {ex['coll_total']:.6e} B a "
+                  f"device, argument "
+                  f"{rec['memory']['argument_bytes'] / 2**30:.3f} GiB a "
+                  f"device, dominant {t['dominant']}")
+        n_ok = sum(bool(r.get("ok")) for r in recs.values())
+        skips = {c for c, r in recs.items() if "skipped" in r}
+        print(f"[dry] (a) 40 cells in {time.perf_counter() - t0:.1f} s on "
+              f"{workers} workers: {n_ok} ok, {len(skips)} skipped")
+        if n_ok != DRY_OK or len(skips) != DRY_SKIPS or any(
+                recs[c]["skipped"] != DRY_SKIP or c[1] != "long_500k"
+                for c in skips):
+            raise AssertionError(f"phase 12 (a): {n_ok} ok and skips "
+                                 f"{sorted(skips)}; expected {DRY_OK} ok and "
+                                 f"{DRY_SKIPS} long_500k skips")
+        for ln in render_table(load_records(Path(tmp)), hw).splitlines():
+            print(f"[dry] (a) {ln}")
+        t1 = time.perf_counter()
+        arch, shape, strategies = PERF_LOOP
+        perf_loop.main(["--arch", arch, "--shape", shape, "--strategies",
+                        strategies, "--hw", "h100", "--out", tmp])
+        print(f"[dry] (a) perf loop in {time.perf_counter() - t1:.1f} s")
+        for nm, fut in host.items():
+            text, wall = fut.result()
+            for ln in text.splitlines():
+                print(f"[dry] (c) {nm}: {ln}")
+            print(f"[dry] (c) {nm} on the host in {wall:.1f} s")
+    return row, b1, ctmc
+
+
 def main() -> int:
     import torch
 
@@ -3106,6 +3404,13 @@ def main() -> int:
     launches["ssd_scan"] += check_train(torch, smi)
     print(f"[train] phase 11 in {time.perf_counter() - t0:.1f} s ({smi})")
 
+    # 12. the dry run, the decode at S=32768 and the examples
+    t0 = time.perf_counter()
+    dry_row, dry_b1, dry_ctmc = check_dryrun(torch, smi)
+    rows["decode_attention"].append(dry_row)
+    launches["decode_attention"] += dry_b1
+    print(f"[dry] phase 12 in {time.perf_counter() - t0:.1f} s ({smi})")
+
     # the main path's largest shape per kernel stands for it in the line
     main_shape = {"decode_attention": "B=16 S=512 main",
                   "prefill_attention": "C=512 causal main",
@@ -3147,7 +3452,9 @@ def main() -> int:
                  "main_bound_ms": gap_row["main_bound_ms"],
                  "main_bound_by": gap_row["main_bound_by"],
                  # phase 9's own path (the heterogeneity control sweep)
-                 "launches_phase9": sweep_row["launches"]})
+                 "launches_phase9": sweep_row["launches"],
+                 # phase 12's ctmc_jax_demo
+                 "launches_phase12": dry_ctmc})
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(smi)

@@ -3,8 +3,9 @@
 Every entry point that touches tensors takes a ``device`` argument and
 resolves it here.  The default is the CUDA card: the port exists to run
 on it, and a measurement that silently fell back to the CPU would be
-reported as a device figure.  The CPU is used only when the caller asks
-for it, as the tests do.
+reported as a device figure.  The CPU, or the ``meta`` device that the
+dry run traces on, is used only when the caller asks for it, as the
+tests do.
 
 Precision is explicit: where the reference reads the process-wide
 ``jax_enable_x64`` flag (``jnp.result_type(float)``), the port's entry
@@ -29,7 +30,8 @@ __all__ = ["Mesh", "make_mesh", "prng_key", "reset_warn_once",
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
-    """``None`` -> ``cuda``; ``"cpu"`` only when passed explicitly.
+    """``None`` -> ``cuda``; ``"cpu"`` or ``"meta"`` (shapes without
+    data: the dry run's trace) only when passed explicitly.
 
     Raises ``RuntimeError`` when CUDA is asked for (explicitly or by
     default) and no card is visible.
@@ -39,7 +41,7 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         raise RuntimeError(
             "CUDA device requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run the plain PyTorch versions")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

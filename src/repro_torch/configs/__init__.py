@@ -2,8 +2,7 @@
 
 ``get_config(arch_id)`` returns the full published config;
 ``get_config(arch_id, reduced=True)`` the CPU-smoke-testable variant of the
-same family.  The dry-run shape cells of the reference
-(``repro.configs.shapes``) are not ported yet (ROADMAP A12).
+same family.  Shapes live in :mod:`repro_torch.configs.shapes`.
 """
 
 from __future__ import annotations
@@ -12,7 +11,10 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["ARCHS", "get_config"]
+from .shapes import SHAPES, ShapeSpec, input_specs, skip_reason, supported_shapes
+
+__all__ = ["ARCHS", "get_config", "SHAPES", "ShapeSpec", "input_specs",
+           "skip_reason", "supported_shapes", "all_cells"]
 
 #: arch id -> module name
 ARCHS: dict[str, str] = {
@@ -35,3 +37,7 @@ def get_config(arch: str, reduced: bool = False) -> ModelConfig:
     mod = importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}")
     return mod.REDUCED if reduced else mod.CONFIG
 
+
+def all_cells() -> list[tuple[str, str]]:
+    """All (arch, shape) dry-run cells, including skipped ones."""
+    return [(a, s) for a in ARCHS for s in SHAPES]

@@ -24,7 +24,7 @@ def check_tensors(where: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{where}: inputs must be contiguous")
         if t.device.type == "cuda" and t.data_ptr() % 16:
             raise ValueError(f"{where}: CUDA inputs must be 16-byte aligned")
-    if t0.device.type not in ("cpu", "cuda"):
+    if t0.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{where}: unsupported device {t0.device}")
 
 

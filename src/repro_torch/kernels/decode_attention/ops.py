@@ -182,7 +182,7 @@ def decode_attention(q, k_cache, v_cache, kv_len, *,
     if window is not None and window <= 0:
         raise ValueError(f"decode_attention: window must be positive, got "
                          f"{window}")
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return decode_attention_plain(
             q, k_cache, v_cache, kv_len, window=window,
             k_positions=k_positions, q_positions=q_positions,

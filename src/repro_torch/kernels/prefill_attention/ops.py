@@ -93,7 +93,7 @@ def prefill_attention(q, k, v, *, causal: bool = True,
     if prefix_len is not None and prefix_len < 0:
         raise ValueError(f"prefill_attention: prefix_len must be >= 0, got "
                          f"{prefix_len}")
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return prefill_attention_plain(q, k, v, causal=causal, window=window,
                                        attn_softcap=attn_softcap,
                                        prefix_len=prefix_len)

@@ -192,7 +192,7 @@ def ssd_scan(x_dt, Bm, Cm, log_a, *, initial_state=None):
     if initial_state is not None and initial_state.shape != (Bsz, H, P, N):
         raise ValueError(f"ssd_scan: initial_state must be {(Bsz, H, P, N)}, "
                          f"got {tuple(initial_state.shape)}")
-    if x_dt.device.type == "cpu":
+    if x_dt.device.type in ("cpu", "meta"):
         return ssd_scan_plain(x_dt, Bm, Cm, log_a,
                               initial_state=initial_state)
 

@@ -4,8 +4,9 @@
 the roofline backend evaluates against it and must reproduce the
 reference's samples exactly.  ``gpu_constants`` is the table of the CUDA
 card being timed, keyed on its name, from NVIDIA's data sheets (dense
-bf16 tensor-core rate, HBM bandwidth).  An unknown card raises: a
-measured iteration time never mixes in another part's figures.
+bf16 tensor-core rate, HBM bandwidth; for the SXM part also the NVLink
+rate of one link, which the dry run's roofline reads).  An unknown card
+raises: a measured iteration time never mixes in another part's figures.
 
 The production meshes of training (:func:`make_production_mesh`) are the
 reference's shapes as :class:`repro_torch.compat.Mesh` records, which
@@ -59,6 +60,9 @@ GPU_TABLES = {
     "NVIDIA H100 80GB HBM3": ("H100 SXM", {
         "peak_flops_bf16": 989e12,  # FLOP/s, dense
         "hbm_bw": 3.35e12,          # B/s
+        # B/s per NVLink link, one way: NVLink 4 gives a GPU 900 GB/s
+        # over 18 links, both directions counted, so 900 / 18 / 2
+        "link_bw": 900e9 / 18 / 2,
     }),
     "NVIDIA H100 PCIe": ("H100 PCIe", {
         "peak_flops_bf16": 756e12,

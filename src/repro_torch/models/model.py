@@ -304,7 +304,9 @@ def _run_segments(cfg: ModelConfig, params, x, *, positions, mode, caches,
             c_r = tree_map(lambda a: a[r], seg_c) if seg_c is not None \
                 else None
 
-            def body(x, p_r=p_r, c_r=c_r, r=r):
+            # every name the body reads from the loop is bound here: a
+            # checkpointed body reruns in the backward, after the loop
+            def body(x, p_r=p_r, c_r=c_r, r=r, block=block, seg_c=seg_c):
                 for bi, spec in enumerate(block):
                     x, c = _apply_block(
                         cfg, spec, p_r[f"b{bi}"], x, positions=positions,

@@ -66,13 +66,14 @@ def make_prefill_step(cfg: ModelConfig, *, kernel_impl: str = "xla",
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, *, masked: bool = True):
     """One decode token for every slot (solo iteration).
 
-    Inactive slots still *compute* (static shapes) but never mutate their
-    caches -- essential when a mixed iteration is concurrently prefilling
-    one of the slots.  (The reference's ``masked=False``, all slots
-    active, serves only its dry-run, which is not ported.)
+    With ``masked=True`` (the engine path) inactive slots still *compute*
+    (static shapes) but never mutate their caches -- essential when a
+    mixed iteration is concurrently prefilling one of the slots.  The
+    dry-run traces ``masked=False`` (all slots active), the pure decode
+    iteration: the new caches are taken as computed.
     """
 
     def merge(new, old, act):
@@ -89,7 +90,8 @@ def make_decode_step(cfg: ModelConfig):
             cfg, params, tokens, positions, state["caches"])
         nxt = greedy_sample(logits)
         act = state["active"]
-        caches = merge(caches, state["caches"], act)
+        if masked:
+            caches = merge(caches, state["caches"], act)
         return {
             "caches": caches,
             "length": state["length"] + act.to(torch.int32),

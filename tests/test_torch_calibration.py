@@ -69,7 +69,8 @@ def test_v5e_table_is_the_reference_table():
 def test_gpu_tables():
     part, consts = mesh.gpu_table("NVIDIA H100 80GB HBM3")
     assert part == "H100 SXM"
-    assert consts == {"peak_flops_bf16": 989e12, "hbm_bw": 3.35e12}
+    assert consts == {"peak_flops_bf16": 989e12, "hbm_bw": 3.35e12,
+                      "link_bw": 25e9}
     assert mesh.gpu_table("NVIDIA H100 PCIe")[1] == {
         "peak_flops_bf16": 756e12, "hbm_bw": 2.0e12}
     with pytest.raises(KeyError, match="NVIDIA A100-SXM4-40GB"):

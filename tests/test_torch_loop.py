@@ -93,6 +93,10 @@ def test_port_imports_neither_jax_nor_the_reference():
     names = [m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, "repro_torch.")]
     assert len(names) > 40
+    # the dry-run and analysis tools are walked too
+    assert {"repro_torch.configs.shapes", "repro_torch.launch.dryrun",
+            "repro_torch.launch.hlo_analysis", "repro_torch.launch.roofline",
+            "repro_torch.launch.perf_loop"} <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for n in {names!r}:\n"
@@ -123,3 +127,23 @@ def test_chip_smoke_imports_neither_jax_nor_the_reference():
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
     # nor inside its functions, which run only on the card
     assert not IMPORT_RE.search(script.read_text())
+
+
+def test_every_reference_module_has_a_twin():
+    """Every ``.py`` of ``src/repro/`` has a file at the same relative
+    path in ``src/repro_torch/``; a kernel's ``kernel.py`` (Pallas) and
+    ``ref.py`` (its oracle) have theirs in ``ops.py`` (the wrapper and
+    the plain version) and ``csrc/`` (the CUDA kernel)."""
+    src = Path(__file__).resolve().parents[1] / "src"
+    ref, port = src / "repro", src / "repro_torch"
+    missing = []
+    for path in sorted(ref.rglob("*.py")):
+        rel = path.relative_to(ref)
+        if rel.parts[0] == "kernels" and rel.name in ("kernel.py", "ref.py"):
+            assert (port / rel.parent / "ops.py").is_file(), rel
+            assert any((port / "kernels" / "csrc").glob(
+                f"{rel.parent.name}.cu")), rel
+            continue
+        if not (port / rel).is_file():
+            missing.append(str(rel))
+    assert missing == []
