@@ -37,13 +37,14 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..compat import resolve_device
+from ..telemetry.spans import span
 from .attention import _einsum, attention_decode, attention_prefill, \
     attn_defs, blockwise_attention, init_kv_cache
 from .config import BlockSpec, ModelConfig, segment_layers
 from .layers import apply_mlp, layernorm, mlp_defs, rmsnorm, softcap
 from .mla import init_mla_cache, mla_decode, mla_defs, mla_prefill
 from .moe import apply_moe, moe_defs
-from .params import PDef, _walk, init_params, tree_map
+from .params import PDef, _walk, init_params, tree_map, tree_nbytes
 from .rglru import init_rglru_cache, rglru_decode, rglru_defs, rglru_forward
 from .ssm import init_ssm_cache, ssm_decode, ssm_defs, ssm_forward
 
@@ -215,45 +216,49 @@ def _apply_block(cfg: ModelConfig, spec: BlockSpec, p, x, *, positions,
     cache is written."""
     h = _apply_norm(cfg, p["ln1"], x)
     new_cache = dict(cache) if cache is not None else None
-    if spec.mixer in ("attn", "attn_local"):
-        local = spec.mixer == "attn_local"
-        kv_keys = ("k", "v", "pos") + (
-            ("k_s", "v_s") if cache is not None and "k_s" in cache else ())
-        sub = ({k: cache[k] for k in kv_keys}
-               if cache is not None else None)
-        if mode == "decode":
-            out, nc = attention_decode(cfg.attn, p["attn"], h, positions, sub,
-                                       local=local)
+    with span("model.mixer"):
+        if spec.mixer in ("attn", "attn_local"):
+            local = spec.mixer == "attn_local"
+            kv_keys = ("k", "v", "pos") + (
+                ("k_s", "v_s") if cache is not None and "k_s" in cache
+                else ())
+            sub = ({k: cache[k] for k in kv_keys}
+                   if cache is not None else None)
+            if mode == "decode":
+                out, nc = attention_decode(cfg.attn, p["attn"], h,
+                                           positions, sub, local=local)
+            else:
+                out, nc = attention_prefill(
+                    cfg.attn, p["attn"], h, positions, local=local,
+                    cache=sub, prefix_len=prefix_len,
+                    kernel_impl=kernel_impl, continuation=continuation)
+        elif spec.mixer == "mla":
+            mla_keys = ("c_kv", "k_rope") + (
+                ("c_s", "r_s") if cache is not None and "c_s" in cache
+                else ())
+            sub = ({k: cache[k] for k in mla_keys}
+                   if cache is not None else None)
+            if mode == "decode":
+                out, nc = mla_decode(cfg.mla, p["mla"], h, positions, sub)
+            else:
+                out, nc = mla_prefill(cfg.mla, p["mla"], h, positions,
+                                      cache=sub, continuation=continuation)
+        elif spec.mixer in ("ssm", "rec"):
+            # both ignore ``continuation``, as in the reference: rec starts
+            # from the cache's conv and state, ssm from its conv and a zero
+            # state (C-ref4)
+            keys, fwd, dec, mcfg = (
+                (("conv", "ssm"), ssm_forward, ssm_decode, cfg.ssm)
+                if spec.mixer == "ssm" else
+                (("conv", "h"), rglru_forward, rglru_decode, cfg.rglru))
+            sub = ({k: cache[k] for k in keys} if cache is not None
+                   else None)
+            if mode == "decode":
+                out, nc = dec(mcfg, p[spec.mixer], h, sub)
+            else:
+                out, nc = fwd(mcfg, p[spec.mixer], h, cache=sub)
         else:
-            out, nc = attention_prefill(
-                cfg.attn, p["attn"], h, positions, local=local, cache=sub,
-                prefix_len=prefix_len, kernel_impl=kernel_impl,
-                continuation=continuation)
-    elif spec.mixer == "mla":
-        mla_keys = ("c_kv", "k_rope") + (
-            ("c_s", "r_s") if cache is not None and "c_s" in cache else ())
-        sub = ({k: cache[k] for k in mla_keys}
-               if cache is not None else None)
-        if mode == "decode":
-            out, nc = mla_decode(cfg.mla, p["mla"], h, positions, sub)
-        else:
-            out, nc = mla_prefill(cfg.mla, p["mla"], h, positions, cache=sub,
-                                  continuation=continuation)
-    elif spec.mixer in ("ssm", "rec"):
-        # both ignore ``continuation``, as in the reference: rec starts
-        # from the cache's conv and state, ssm from its conv and a zero
-        # state (C-ref4)
-        keys, fwd, dec, mcfg = (
-            (("conv", "ssm"), ssm_forward, ssm_decode, cfg.ssm)
-            if spec.mixer == "ssm" else
-            (("conv", "h"), rglru_forward, rglru_decode, cfg.rglru))
-        sub = ({k: cache[k] for k in keys} if cache is not None else None)
-        if mode == "decode":
-            out, nc = dec(mcfg, p[spec.mixer], h, sub)
-        else:
-            out, nc = fwd(mcfg, p[spec.mixer], h, cache=sub)
-    else:
-        raise ValueError(spec.mixer)
+            raise ValueError(spec.mixer)
     if nc is not None:
         new_cache.update(nc)
     x = x + out
@@ -278,7 +283,9 @@ def _apply_block(cfg: ModelConfig, spec: BlockSpec, p, x, *, positions,
         x = x + apply_mlp(mp, h, cfg.mlp_act)
     elif spec.channel == "moe":
         h = _apply_norm(cfg, p["ln2"], x)
-        x = x + apply_moe(cfg.moe, p["moe"], h)
+        with span("model.moe"):
+            y = apply_moe(cfg.moe, p["moe"], h)
+        x = x + y
     return x, new_cache
 
 
@@ -296,9 +303,12 @@ def _run_segments(cfg: ModelConfig, params, x, *, positions, mode, caches,
         seg_p = params[f"seg{si}"]
         # one copy of the segment's caches per call: the layers write
         # their slices of it in place, the caller's caches stay as they were
-        seg_c = (tree_map(lambda a: a.clone(
-            memory_format=torch.contiguous_format), caches[si])
-            if caches is not None else None)
+        seg_c = None
+        if caches is not None:
+            with span("model.cache_clone",
+                      bytes=lambda c=caches[si]: tree_nbytes(c)):
+                seg_c = tree_map(lambda a: a.clone(
+                    memory_format=torch.contiguous_format), caches[si])
         for r in range(rep):  # the reference's lax.scan over the stack
             p_r = tree_map(lambda a: a[r], seg_p)
             c_r = tree_map(lambda a: a[r], seg_c) if seg_c is not None \

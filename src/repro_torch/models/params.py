@@ -29,7 +29,7 @@ from ..compat import resolve_device
 
 __all__ = ["DEFAULT_RULES", "PDef", "abstract_params", "init_params",
            "params_from_numpy", "partition_specs", "train_state_from_numpy",
-           "tree_map", "tree_unzip"]
+           "tree_map", "tree_nbytes", "tree_unzip"]
 
 
 @dataclass(frozen=True)
@@ -96,6 +96,11 @@ def tree_flatten(tree, path=()):
             yield from tree_flatten(v, path + (f"[{i}]",))
     else:
         yield path, tree
+
+
+def tree_nbytes(tree) -> int:
+    """Bytes the tensor leaves of a tree hold (``numel x element_size``)."""
+    return sum(a.numel() * a.element_size() for _, a in tree_flatten(tree))
 
 
 def tree_unzip(tree, n: int):

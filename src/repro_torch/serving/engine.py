@@ -26,6 +26,7 @@ from ..compat import resolve_device
 from ..core.types import ServicePrimitives
 from ..models.config import ModelConfig
 from ..models.params import tree_map
+from ..telemetry.spans import span
 from .steps import init_server_state, make_decode_step, make_mixed_step
 
 __all__ = ["SlotRequest", "ServerEngine"]
@@ -131,47 +132,56 @@ class ServerEngine:
         """
         out = {"tau": 0.0, "completed": [], "prefill_done": None,
                "prefill_slot": -1}
-        if self.prefill is not None:
+        mixed = self.prefill is not None
+        if mixed:
             req, toks, done = self.prefill
             n = min(self.chunk, len(toks) - done)
-            chunk = np.zeros((self.chunk,), np.int32)  # padded (C-ref4)
-            chunk[:n] = toks[done:done + n]
-            self.state, dec_tokens, _ = self._mixed(
-                self.params, self.state, self.prefill_slot,
-                torch.from_numpy(chunk).to(self.device),
-                torch.full((1, 1), done, dtype=torch.int32,
-                           device=self.device))
-            # fix the slot's length to true progress (chunk may be padded)
-            slot = self.prefill_slot
-            self.state["length"][slot] = done + n
-            self.state["last_token"][slot] = int(toks[done + n - 1])
-            out["tau"] = self.prim.alpha + self.prim.beta * n
-            self._account_decode(dec_tokens, skip=slot, out=out)
-            if done + n >= len(toks):
-                out["prefill_done"] = req
-                out["prefill_slot"] = slot
-                self.prefill = None
-                self.prefill_slot = -1
+        with span("engine.step", mode="mixed" if mixed else "solo",
+                  decoding=lambda: self.n_decoding,
+                  chunk_tokens=n if mixed else 0):
+            if mixed:
+                chunk = np.zeros((self.chunk,), np.int32)  # padded (C-ref4)
+                chunk[:n] = toks[done:done + n]
+                self.state, dec_tokens, _ = self._mixed(
+                    self.params, self.state, self.prefill_slot,
+                    torch.from_numpy(chunk).to(self.device),
+                    torch.full((1, 1), done, dtype=torch.int32,
+                               device=self.device))
+                # fix the slot's length to true progress (chunk may be
+                # padded)
+                slot = self.prefill_slot
+                self.state["length"][slot] = done + n
+                self.state["last_token"][slot] = int(toks[done + n - 1])
+                out["tau"] = self.prim.alpha + self.prim.beta * n
+                self._account_decode(dec_tokens, skip=slot, out=out)
+                if done + n >= len(toks):
+                    out["prefill_done"] = req
+                    out["prefill_slot"] = slot
+                    self.prefill = None
+                    self.prefill_slot = -1
+                else:
+                    self.prefill = (req, toks, done + n)
             else:
-                self.prefill = (req, toks, done + n)
-        else:
-            self.state, dec_tokens = self._decode(self.params, self.state)
-            out["tau"] = self.prim.tau_solo
-            self._account_decode(dec_tokens, skip=-1, out=out)
+                self.state, dec_tokens = self._decode(self.params,
+                                                      self.state)
+                out["tau"] = self.prim.tau_solo
+                self._account_decode(dec_tokens, skip=-1, out=out)
         return out
 
     def _account_decode(self, dec_tokens, *, skip: int, out: dict):
-        toks = dec_tokens.cpu().numpy()
-        active = self.state["active"].cpu().numpy()
-        for i, req in enumerate(self.slots):
-            if req is None or i == skip or i == self.prefill_slot:
-                continue
-            if not active[i]:
-                continue
-            req.tokens_out += 1
-            req.out_tokens.append(int(toks[i]))
-            if req.tokens_out >= req.decode_len:
-                out["completed"].append(req)
-                self.state["active"][i] = False
-                self.state["length"][i] = 0
-                self.slots[i] = None
+        with span("step.sync"):
+            toks = dec_tokens.cpu().numpy()
+            active = self.state["active"].cpu().numpy()
+        with span("step.account"):
+            for i, req in enumerate(self.slots):
+                if req is None or i == skip or i == self.prefill_slot:
+                    continue
+                if not active[i]:
+                    continue
+                req.tokens_out += 1
+                req.out_tokens.append(int(toks[i]))
+                if req.tokens_out >= req.decode_len:
+                    out["completed"].append(req)
+                    self.state["active"][i] = False
+                    self.state["length"][i] = 0
+                    self.slots[i] = None

@@ -23,7 +23,8 @@ import torch
 from ..compat import resolve_device
 from ..models import model as M
 from ..models.config import ModelConfig
-from ..models.params import tree_map
+from ..models.params import tree_map, tree_nbytes
+from ..telemetry.spans import span
 
 __all__ = ["make_prefill_step", "make_decode_step", "make_mixed_step",
            "init_server_state", "greedy_sample"]
@@ -84,20 +85,23 @@ def make_decode_step(cfg: ModelConfig, *, masked: bool = True):
         return tree_map(one, new, old)
 
     def decode_step(params, state):
-        tokens = state["last_token"][:, None]
-        positions = state["length"]
-        logits, caches = M.forward_decode(
-            cfg, params, tokens, positions, state["caches"])
-        nxt = greedy_sample(logits)
-        act = state["active"]
-        if masked:
-            caches = merge(caches, state["caches"], act)
-        return {
-            "caches": caches,
-            "length": state["length"] + act.to(torch.int32),
-            "last_token": torch.where(act, nxt, state["last_token"]),
-            "active": act,
-        }, nxt
+        with span("step.decode"):
+            tokens = state["last_token"][:, None]
+            positions = state["length"]
+            logits, caches = M.forward_decode(
+                cfg, params, tokens, positions, state["caches"])
+            nxt = greedy_sample(logits)
+            act = state["active"]
+            if masked:
+                with span("step.merge",
+                          bytes=lambda: tree_nbytes(state["caches"])):
+                    caches = merge(caches, state["caches"], act)
+            return {
+                "caches": caches,
+                "length": state["length"] + act.to(torch.int32),
+                "last_token": torch.where(act, nxt, state["last_token"]),
+                "active": act,
+            }, nxt
 
     return decode_step
 
@@ -128,13 +132,16 @@ def make_mixed_step(cfg: ModelConfig, chunk: int):
     def mixed_step(params, state, p_slot, chunk_tokens, chunk_pos0, *,
                    enc_frames=None, prefix_embeds=None):
         # --- prefill chunk on the designated slot (batch of 1)
-        sub_cache = slice_slot(state["caches"], p_slot)
-        positions = chunk_pos0 + torch.arange(
-            chunk, dtype=torch.int32, device=chunk_tokens.device)[None, :]
-        sub_cache, tok = pf(params, sub_cache, chunk_tokens[None, :],
-                            positions, enc_frames=enc_frames,
-                            prefix_embeds=prefix_embeds)
-        caches = write_slot(state["caches"], sub_cache, p_slot)
+        with span("step.chunk"):
+            sub_cache = slice_slot(state["caches"], p_slot)
+            positions = chunk_pos0 + torch.arange(
+                chunk, dtype=torch.int32, device=chunk_tokens.device)[None, :]
+            sub_cache, tok = pf(params, sub_cache, chunk_tokens[None, :],
+                                positions, enc_frames=enc_frames,
+                                prefix_embeds=prefix_embeds)
+        with span("step.write_slot",
+                  bytes=lambda: tree_nbytes(state["caches"])):
+            caches = write_slot(state["caches"], sub_cache, p_slot)
 
         # --- decode everyone else
         B = state["active"].shape[0]

@@ -9,6 +9,21 @@
   JSONL provenance (torch, CUDA and the card in place of the
   reference's JAX version).
 * :mod:`repro_torch.telemetry.timing` -- the host and CUDA timers.
+* :mod:`repro_torch.telemetry.spans` -- ``span(name, **attrs)`` around
+  the phases of ``ServerEngine.step`` and of the model: ``cpu_op`` ranges
+  while ``torch.profiler`` runs, records in memory while
+  ``spans.recording()`` is on, one flag check otherwise.
+
+An operator records a window of spans and writes it as a Chrome trace::
+
+    from repro_torch.telemetry import spans, trace
+
+    with spans.recording():
+        for _ in range(100):
+            engine.step()
+    trace.write_trace("steps.json", trace.span_events(spans.records()))
+
+``spans.dropped()`` counts the spans past ``spans.LIMIT`` records.
 
 ``python -m repro_torch.telemetry`` renders trajectory/SLI reports and
 validates emitted trace/manifest files.
@@ -20,9 +35,10 @@ from .manifest import (MANIFEST_SCHEMA_VERSION, append_record,
 from .probes import (PROBES, ProbeSpec, PyProbes, extract_probes,
                      hist_attainment, hist_edges, hist_percentile,
                      resolve_probe_spec)
+from .spans import recording, records, span
 from .timing import timeit_median
 from .trace import (TRACE_SCHEMA_VERSION, lifecycle_events, replan_events,
-                    trace_payload, validate_trace, write_trace)
+                    span_events, trace_payload, validate_trace, write_trace)
 
 __all__ = [
     "MANIFEST_SCHEMA_VERSION",
@@ -39,9 +55,13 @@ __all__ = [
     "lifecycle_events",
     "payload_digest",
     "read_records",
+    "recording",
+    "records",
     "replan_events",
     "resolve_probe_spec",
     "run_record",
+    "span",
+    "span_events",
     "timeit_median",
     "trace_payload",
     "validate_record",
