@@ -16,6 +16,10 @@ Three entry points, matching the serving/training split of the paper:
   returns the last-position logits.
 * :func:`forward_decode` -- one-token decode step over the caches.
 
+The two serving entry points write into one copy of the caches they are
+given; their ``_inplace`` forms, which the serving engine runs on the
+caches it owns, write the caches where they lie.
+
 Every mixer (``attn``/``attn_local``, ``mla``, ``rec``, ``ssm``) and
 channel (``mlp``, ``moe``) runs.  Encoder-decoder (whisper) runs its
 encoder over stub frame embeddings and feeds cross-attention KV to every
@@ -49,8 +53,9 @@ from .rglru import init_rglru_cache, rglru_decode, rglru_defs, rglru_forward
 from .ssm import init_ssm_cache, ssm_decode, ssm_defs, ssm_forward
 
 __all__ = ["model_defs", "param_count", "active_param_count", "init_cache",
-           "forward_train", "forward_prefill", "forward_decode", "loss_fn",
-           "encoder_forward", "init_model"]
+           "forward_train", "forward_prefill", "forward_decode",
+           "forward_prefill_inplace", "forward_decode_inplace",
+           "clone_caches", "loss_fn", "encoder_forward", "init_model"]
 
 
 # ------------------------------------------------------------------ norms
@@ -294,21 +299,23 @@ def _apply_block(cfg: ModelConfig, spec: BlockSpec, p, x, *, positions,
 
 def _run_segments(cfg: ModelConfig, params, x, *, positions, mode, caches,
                   prefix_len=None, enc_out=None, kernel_impl="xla",
-                  continuation=False, remat=False):
+                  continuation=False, remat=False, active=None):
+    """The layers over ``x``, writing ``caches`` where they lie.
+
+    Returns (x, caches): the same leaves, but for a leaf whose dtype the
+    layers change (the cross-attention K/V come back in the activations'
+    dtype), which comes back new; the caller's containers are left as
+    they were.  ``active`` (B,) bool, decode only: the recurrent states
+    of rows where it is False are not written."""
     segs = segment_layers(cfg.block_specs())
     if mode == "train" and caches is not None:
         raise ValueError("train mode takes no caches: it writes none")
     new_caches = [] if caches is not None else None
     for si, (block, rep) in enumerate(segs):
         seg_p = params[f"seg{si}"]
-        # one copy of the segment's caches per call: the layers write
-        # their slices of it in place, the caller's caches stay as they were
-        seg_c = None
-        if caches is not None:
-            with span("model.cache_clone",
-                      bytes=lambda c=caches[si]: tree_nbytes(c)):
-                seg_c = tree_map(lambda a: a.clone(
-                    memory_format=torch.contiguous_format), caches[si])
+        # the layers write their slices of the segment's stacked caches
+        seg_c = ({b: dict(c) for b, c in caches[si].items()}
+                 if caches is not None else None)
         for r in range(rep):  # the reference's lax.scan over the stack
             p_r = tree_map(lambda a: a[r], seg_p)
             c_r = tree_map(lambda a: a[r], seg_c) if seg_c is not None \
@@ -337,7 +344,12 @@ def _run_segments(cfg: ModelConfig, params, x, *, positions, mode, caches,
                                 stack = seg_c[f"b{bi}"]
                                 stack[k] = stack[k].to(c[k].dtype)
                                 dst = c_r[f"b{bi}"][k] = stack[k][r]
-                            dst.copy_(c[k])
+                            if active is None:
+                                dst.copy_(c[k])
+                            else:  # inactive rows keep their state
+                                m = active.reshape(
+                                    (-1,) + (1,) * (dst.dim() - 1))
+                                torch.where(m, c[k], dst, out=dst)
                 return x
 
             # ``remat``: the reference's ``jax.checkpoint`` around the body,
@@ -347,6 +359,44 @@ def _run_segments(cfg: ModelConfig, params, x, *, positions, mode, caches,
         if new_caches is not None:
             new_caches.append(seg_c)
     return x, new_caches
+
+
+# the cache leaves with a sequence axis (axis 2 of a stacked leaf), which
+# a decode writes at one position a row; the recurrent states ("conv",
+# "ssm", "h") it replaces whole, and the cross-attention K/V it only reads
+_AT_POSITION = frozenset({"k", "v", "pos", "k_s", "v_s", "c_kv", "k_rope",
+                          "c_s", "r_s"})
+
+
+def _written_by_decode(caches, positions, rows):
+    """[(leaf, position index (B,), the leaf there (rep, B, ...))]: what
+    each row holds where a decode at ``positions`` writes, the index
+    ``positions % S`` as the cache writers take it."""
+    idx, out = {}, []
+    for seg in caches:
+        for blk in seg.values():
+            for k, a in blk.items():
+                if k in _AT_POSITION:
+                    S = a.shape[2]
+                    if S not in idx:
+                        idx[S] = (positions % S).long()
+                    i = idx[S]
+                    out.append((a, i, a[:, rows, i]))
+    return out
+
+
+def _put_back(kept, active, rows):
+    """Inactive rows get back what they held where the decode wrote."""
+    for a, i, old in kept:
+        m = active.reshape((1, -1) + (1,) * (old.dim() - 2))
+        a[:, rows, i] = torch.where(m, a[:, rows, i], old)
+
+
+def _at_position_nbytes(caches):
+    """Bytes of the caches at one position a row: what a decode writes."""
+    return sum(a.numel() // a.shape[2] * a.element_size()
+               for seg in caches for blk in seg.values()
+               for k, a in blk.items() if k in _AT_POSITION)
 
 
 def _logits(cfg: ModelConfig, params, x):
@@ -479,6 +529,36 @@ def loss_fn(cfg: ModelConfig, params, tokens, labels, *, prefix_embeds=None,
     return loss
 
 
+def clone_caches(caches):
+    """One contiguous copy of a cache tree, for the entry points that
+    leave their caller's caches as they were."""
+    with span("model.cache_clone", bytes=lambda: tree_nbytes(caches)):
+        return tree_map(
+            lambda a: a.clone(memory_format=torch.contiguous_format), caches)
+
+
+def forward_prefill_inplace(cfg: ModelConfig, params, tokens, positions,
+                            caches, *, prefix_embeds=None, enc_frames=None,
+                            kernel_impl="xla", continuation=False):
+    """:func:`forward_prefill` writing ``caches`` where they lie: returns
+    (last-position logits, caches), the caches the same tensors but for a
+    leaf the chunk gives a dtype of its own (the cross-attention K/V in
+    the activations' dtype), which comes back new."""
+    enc_out = _encode(cfg, params, enc_frames, "prefill")
+    x, prefix_len = _embed(cfg, params, tokens, positions, prefix_embeds)
+    if prefix_len:
+        B = tokens.shape[0]
+        pre = torch.arange(prefix_len, dtype=positions.dtype,
+                           device=positions.device)
+        positions = torch.cat([pre[None].expand(B, prefix_len),
+                               positions + prefix_len], dim=1)
+    x, caches = _run_segments(
+        cfg, params, x, positions=positions, mode="prefill", caches=caches,
+        prefix_len=prefix_len, enc_out=enc_out, kernel_impl=kernel_impl,
+        continuation=continuation)
+    return _logits(cfg, params, x[:, -1:]), caches
+
+
 def forward_prefill(cfg: ModelConfig, params, tokens, positions, caches, *,
                     prefix_embeds=None, enc_frames=None, kernel_impl="xla",
                     continuation=False):
@@ -491,29 +571,51 @@ def forward_prefill(cfg: ModelConfig, params, tokens, positions, caches, *,
     encoder's stub frame embeddings, which an encoder-decoder config
     needs.  ``kernel_impl="pallas"`` runs whole-prompt attention through
     the prefill attention kernel (B2); ``continuation=True`` attends over
-    the cached context.
+    the cached context.  The caller's caches stay as they were: the
+    chunk is written into one copy of them.
     """
-    enc_out = _encode(cfg, params, enc_frames, "prefill")
-    x, prefix_len = _embed(cfg, params, tokens, positions, prefix_embeds)
-    if prefix_len:
-        B = tokens.shape[0]
-        pre = torch.arange(prefix_len, dtype=positions.dtype,
-                           device=positions.device)
-        positions = torch.cat([pre[None].expand(B, prefix_len),
-                               positions + prefix_len], dim=1)
-    x, new_caches = _run_segments(
-        cfg, params, x, positions=positions, mode="prefill", caches=caches,
-        prefix_len=prefix_len, enc_out=enc_out, kernel_impl=kernel_impl,
-        continuation=continuation)
-    return _logits(cfg, params, x[:, -1:]), new_caches
+    return forward_prefill_inplace(
+        cfg, params, tokens, positions,
+        clone_caches(caches) if caches is not None else None,
+        prefix_embeds=prefix_embeds, enc_frames=enc_frames,
+        kernel_impl=kernel_impl, continuation=continuation)
+
+
+def forward_decode_inplace(cfg: ModelConfig, params, tokens, positions,
+                           caches, *, active=None):
+    """:func:`forward_decode` writing ``caches`` where they lie; returns
+    (logits, caches).
+
+    ``active`` (B,) bool: rows where it is False end with their caches as
+    they were, bit for bit.  Every row still computes, and reads the
+    token it writes, as in the reference's masked step (whose merge
+    keeps the old caches of those rows); here what they held at the
+    position it goes to is kept before and put back after (O(B) cache
+    positions, span ``step.merge``), and their recurrent states are not
+    written.
+    """
+    x, _ = _embed(cfg, params, tokens, positions[:, None], None)
+    kept = None
+    if active is not None:
+        rows = torch.arange(positions.shape[0], device=positions.device)
+        with span("step.merge",
+                  bytes=lambda: _at_position_nbytes(caches)):
+            kept = _written_by_decode(caches, positions, rows)
+    x, caches = _run_segments(cfg, params, x, positions=positions,
+                              mode="decode", caches=caches, active=active)
+    if kept is not None:
+        with span("step.merge",
+                  bytes=lambda: _at_position_nbytes(caches)):
+            _put_back(kept, active, rows)
+    return _logits(cfg, params, x), caches
 
 
 def forward_decode(cfg: ModelConfig, params, tokens, positions, caches):
-    """One-token decode. tokens (B, 1); positions (B,) current index."""
-    x, _ = _embed(cfg, params, tokens, positions[:, None], None)
-    x, new_caches = _run_segments(cfg, params, x, positions=positions,
-                                  mode="decode", caches=caches)
-    return _logits(cfg, params, x), new_caches
+    """One-token decode. tokens (B, 1); positions (B,) current index.  The
+    caller's caches stay as they were: the token is written into one copy
+    of them."""
+    return forward_decode_inplace(cfg, params, tokens, positions,
+                                  clone_caches(caches))
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator,

@@ -9,9 +9,10 @@ abstraction).
 
 The engine reports calibrated iteration times from ServicePrimitives
 alongside the real token outputs -- the paper's split between GPU physics
-(calibrated tau) and scheduling semantics.  The bookkeeping tensors
-(``length``, ``last_token``, ``active``) and, on injection, the caches
-are updated in place: the engine owns them.
+(calibrated tau) and scheduling semantics.  The engine owns its state:
+the caches are allocated once and written in place by every step and on
+injection, and the bookkeeping tensors (``length``, ``last_token``,
+``active``) are updated in place between steps.
 """
 
 from __future__ import annotations
@@ -57,8 +58,9 @@ class ServerEngine:
         self.device = resolve_device(device)
         self.state = init_server_state(cfg, self.B, max_len, dtype,
                                        self.device)
-        self._decode = make_decode_step(cfg)
-        self._mixed = make_mixed_step(cfg, self.chunk)
+        # the engine owns its state: its steps write the caches in place
+        self._decode = make_decode_step(cfg, inplace=True)
+        self._mixed = make_mixed_step(cfg, self.chunk, inplace=True)
         self.slots: list[Optional[SlotRequest]] = [None] * self.B
         # host-side prefill progress (one prefill at a time, paper Section 2)
         self.prefill: Optional[tuple[SlotRequest, np.ndarray, int]] = None

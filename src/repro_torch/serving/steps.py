@@ -10,10 +10,13 @@ the paper's iteration taxonomy (Section 2.2):
   *fused with* one decode token for the other slots: the paper's
   mixed-mode GPU iteration.
 
-All are ``(params, state, inputs) -> (state, outputs)`` functions that
-build new cache tensors and leave their inputs as they were, as the
-reference's pure functions do; :mod:`.engine` wraps them with slot
-management.
+All are ``(params, state, inputs) -> (state, outputs)`` functions; by
+default they leave their inputs as they were, as the reference's pure
+functions do.  The decode and mixed steps also come in place
+(``inplace=True``), for :mod:`.engine`, which owns its state and wraps
+them with slot management: the caches are written where they lie and
+come back in the new state, beside new bookkeeping tensors.  The pure
+form is one copy of the caches in front of the same step.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import torch
 from ..compat import resolve_device
 from ..models import model as M
 from ..models.config import ModelConfig
-from ..models.params import tree_map, tree_nbytes
+from ..models.params import tree_flatten, tree_map
 from ..telemetry.spans import span
 
 __all__ = ["make_prefill_step", "make_decode_step", "make_mixed_step",
@@ -67,35 +70,30 @@ def make_prefill_step(cfg: ModelConfig, *, kernel_impl: str = "xla",
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, *, masked: bool = True):
+def make_decode_step(cfg: ModelConfig, *, masked: bool = True,
+                     inplace: bool = False):
     """One decode token for every slot (solo iteration).
 
     With ``masked=True`` (the engine path) inactive slots still *compute*
-    (static shapes) but never mutate their caches -- essential when a
-    mixed iteration is concurrently prefilling one of the slots.  The
+    (static shapes) but end with their caches as they were, bit for bit
+    -- essential when a mixed iteration is concurrently prefilling one of
+    the slots.  The blend is at the position each row writes
+    (``models.model.forward_decode_inplace``), not over the caches.  The
     dry-run traces ``masked=False`` (all slots active), the pure decode
-    iteration: the new caches are taken as computed.
+    iteration: the new caches are taken as computed.  ``inplace=True``
+    writes ``state``'s caches where they lie; otherwise the step writes
+    one copy of them.
     """
-
-    def merge(new, old, act):
-        # cache leaves are (layer_rep, B, ...): batch is axis 1
-        def one(n, o):
-            m = act.reshape((1, -1) + (1,) * (n.dim() - 2))
-            return torch.where(m, n, o)
-        return tree_map(one, new, old)
 
     def decode_step(params, state):
         with span("step.decode"):
-            tokens = state["last_token"][:, None]
-            positions = state["length"]
-            logits, caches = M.forward_decode(
-                cfg, params, tokens, positions, state["caches"])
-            nxt = greedy_sample(logits)
+            caches = state["caches"] if inplace else \
+                M.clone_caches(state["caches"])
             act = state["active"]
-            if masked:
-                with span("step.merge",
-                          bytes=lambda: tree_nbytes(state["caches"])):
-                    caches = merge(caches, state["caches"], act)
+            logits, caches = M.forward_decode_inplace(
+                cfg, params, state["last_token"][:, None], state["length"],
+                caches, active=act if masked else None)
+            nxt = greedy_sample(logits)
             return {
                 "caches": caches,
                 "length": state["length"] + act.to(torch.int32),
@@ -106,53 +104,53 @@ def make_decode_step(cfg: ModelConfig, *, masked: bool = True):
     return decode_step
 
 
-def make_mixed_step(cfg: ModelConfig, chunk: int):
+def make_mixed_step(cfg: ModelConfig, chunk: int, *, inplace: bool = False):
     """Fused mixed iteration: prefill ``chunk`` tokens into slot ``p_slot``
     while decoding one token on every *other* active slot.
 
-    The chunk runs at batch=1 on a cache slice of the slot-structured state;
-    decode masks out the prefilling slot.  ``prefix_embeds``, as in the
-    reference, is prepended to every chunk.  Returns (state,
-    decode_tokens, chunk_last_logits_token).
+    The chunk runs at batch=1 on the slot's view of the slot-structured
+    caches and writes through it; the decode then runs on the same caches
+    and masks out the prefilling slot.  ``prefix_embeds``, as in the
+    reference, is prepended to every chunk.  ``inplace`` as in
+    :func:`make_decode_step`.  Returns (state, decode_tokens,
+    chunk_last_logits_token).
     """
-    pf = make_prefill_step(cfg, continuation=True)
-    dec = make_decode_step(cfg)
-
-    # cache leaves are (layer_rep, B, ...): the slot/batch dim is axis 1
-    def slice_slot(tree, slot):
-        return tree_map(lambda a: a[:, slot:slot + 1], tree)
-
-    def write_slot(tree, sub, slot):
-        def one(a, s):
-            a = a.clone()
-            a[:, slot:slot + 1] = s
-            return a
-        return tree_map(one, tree, sub)
+    dec = make_decode_step(cfg, inplace=True)
 
     def mixed_step(params, state, p_slot, chunk_tokens, chunk_pos0, *,
                    enc_frames=None, prefix_embeds=None):
+        caches = state["caches"] if inplace else \
+            M.clone_caches(state["caches"])
         # --- prefill chunk on the designated slot (batch of 1)
         with span("step.chunk"):
-            sub_cache = slice_slot(state["caches"], p_slot)
+            # cache leaves are (layer_rep, B, ...): the slot/batch dim is
+            # axis 1
+            view = tree_map(lambda a: a[:, p_slot:p_slot + 1], caches)
             positions = chunk_pos0 + torch.arange(
                 chunk, dtype=torch.int32, device=chunk_tokens.device)[None, :]
-            sub_cache, tok = pf(params, sub_cache, chunk_tokens[None, :],
-                                positions, enc_frames=enc_frames,
-                                prefix_embeds=prefix_embeds)
-        with span("step.write_slot",
-                  bytes=lambda: tree_nbytes(state["caches"])):
-            caches = write_slot(state["caches"], sub_cache, p_slot)
+            logits, sub = M.forward_prefill_inplace(
+                cfg, params, chunk_tokens[None, :], positions, view,
+                enc_frames=enc_frames, prefix_embeds=prefix_embeds,
+                continuation=True)
+            tok = greedy_sample(logits)
+        # a leaf the chunk gave a dtype of its own (the cross-attention
+        # K/V in the activations') goes into the slot in the cache's
+        moved = [(v, n) for (_, v), (_, n) in zip(tree_flatten(view),
+                                                   tree_flatten(sub))
+                 if n is not v]
+        if moved:
+            with span("step.write_slot",
+                      bytes=lambda: sum(v.numel() * v.element_size()
+                                        for v, _ in moved)):
+                for v, n in moved:
+                    v.copy_(n)
 
         # --- decode everyone else
         B = state["active"].shape[0]
         mask = torch.arange(B, device=state["active"].device) != p_slot
         dstate = dict(state, caches=caches, active=state["active"] & mask)
         dstate, dec_tokens = dec(params, dstate)
-        # restore the prefilling slot's activity bit
-        new_state = dict(
-            dstate,
-            active=torch.where(mask, dstate["active"], state["active"]),
-        )
-        return new_state, dec_tokens, tok[0]
+        # the prefilling slot's activity bit, as it was
+        return dict(dstate, active=state["active"]), dec_tokens, tok[0]
 
     return mixed_step

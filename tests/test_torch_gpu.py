@@ -1048,3 +1048,51 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
     tree_map(lambda a, b: torch.testing.assert_close(
         b.cpu(), a, atol=1e-4 * float(a.abs().max()) + 1e-12, rtol=1e-4),
         gc, gg)
+
+
+def test_engine_mixed_step_writes_its_caches_in_place(cuda):
+    """One mixed step of the engine (reduced grok-1: attention and MoE,
+    bf16 caches, 32 slots of 8192) beside three decoding slots: the
+    device's peak memory rises by less than one copy of the caches, and
+    the step's tokens and caches are the pure step's bit for bit (the
+    MoE's scatter-add over top-2 experts adds two terms onto zero, so its
+    order cannot show)."""
+    from repro_torch.core.types import ServicePrimitives
+    from repro_torch.models.params import tree_flatten, tree_nbytes
+    from repro_torch.serving.engine import ServerEngine, SlotRequest
+    from repro_torch.serving.steps import make_mixed_step
+
+    cfg = get_config("grok-1-314b", reduced=True)
+    params = M.init_model(cfg, torch.Generator().manual_seed(0),
+                          device=cuda)
+    C = 32
+    eng = ServerEngine(cfg, params, prim=ServicePrimitives(batch_cap=32,
+                                                           chunk=C),
+                       max_len=8192, dtype=torch.bfloat16, device=cuda)
+    rng = np.random.default_rng(3)
+    for rid in range(4):
+        eng.start_prefill(SlotRequest(rid, 0, 40, 50),
+                          rng.integers(2, cfg.vocab_size, 40))
+        while eng.has_prefill:
+            res = eng.step()
+        if rid < 3:
+            eng.activate_slot(res["prefill_slot"])
+    eng.start_prefill(SlotRequest(4, 0, 40, 50),
+                      rng.integers(2, cfg.vocab_size, 40))
+    slot, (_, toks, _) = eng.prefill_slot, eng.prefill
+    args = (eng.params, eng.state, slot,
+            torch.from_numpy(toks[:C]).to(cuda),
+            torch.zeros((1, 1), dtype=torch.int32, device=cuda))
+    want = make_mixed_step(cfg, C)(*args)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = eng._mixed(*args)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    assert rise < tree_nbytes(eng.state["caches"]), rise
+    assert torch.equal(got[1], want[1]) and int(got[2]) == int(want[2])
+    assert int(got[0]["active"].sum()) == 3
+    for (_, g), (_, w) in zip(tree_flatten(got[0]["caches"]),
+                              tree_flatten(want[0]["caches"])):
+        assert torch.equal(g, w)

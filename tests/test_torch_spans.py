@@ -15,6 +15,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.types import ServicePrimitives
 from repro_torch.models.model import init_model
 from repro_torch.models.params import tree_map, tree_nbytes
+from repro_torch.serving import steps
 from repro_torch.serving.engine import ServerEngine, SlotRequest
 from repro_torch.telemetry import spans, trace
 from repro_torch.telemetry.spans import span
@@ -105,7 +106,10 @@ def _windows(eng):
     return got
 
 
-FORWARD = ["model.cache_clone"] + ["model.mixer", "model.moe"] * 3
+LAYERS = ["model.mixer", "model.moe"] * 3
+# the engine's decode: the inactive rows' caches at the written position
+# kept, the layers, and put back
+DECODE = ["step.merge"] + LAYERS + ["step.merge"]
 
 
 def test_a_mixed_and_a_solo_step_emit_their_spans_in_order():
@@ -114,16 +118,14 @@ def test_a_mixed_and_a_solo_step_emit_their_spans_in_order():
                           for n, _, _, p, _ in recs]
     assert names(mixed) == (
         [("engine.step", None), ("step.chunk", "engine.step")]
-        + [(n, "step.chunk") for n in FORWARD]
-        + [("step.write_slot", "engine.step"), ("step.decode", "engine.step")]
-        + [(n, "step.decode") for n in FORWARD]
-        + [("step.merge", "step.decode"), ("step.sync", "engine.step"),
-           ("step.account", "engine.step")])
+        + [(n, "step.chunk") for n in LAYERS]
+        + [("step.decode", "engine.step")]
+        + [(n, "step.decode") for n in DECODE]
+        + [("step.sync", "engine.step"), ("step.account", "engine.step")])
     assert names(solo) == (
         [("engine.step", None), ("step.decode", "engine.step")]
-        + [(n, "step.decode") for n in FORWARD]
-        + [("step.merge", "step.decode"), ("step.sync", "engine.step"),
-           ("step.account", "engine.step")])
+        + [(n, "step.decode") for n in DECODE]
+        + [("step.sync", "engine.step"), ("step.account", "engine.step")])
     for recs in (mixed, solo):
         for n, a, b, p, _ in recs:
             assert a <= b
@@ -135,6 +137,8 @@ def test_a_mixed_and_a_solo_step_emit_their_spans_in_order():
 
 
 def test_the_bytes_attrs_are_the_copied_trees():
+    """The engine copies no tree: its merges move the caches at one
+    position a row. The pure steps copy the whole caches once."""
     eng = _engine()
     caches = eng.state["caches"]
     full = sum(a.numel() * a.element_size() for a in
@@ -145,9 +149,18 @@ def test_the_bytes_attrs_are_the_copied_trees():
     mixed, solo = _windows(eng)
     by = lambda recs, n: [r[4]["bytes"] for r in recs  # noqa: E731
                           if r[0] == n]
-    assert by(mixed, "step.write_slot") == by(mixed, "step.merge") == [full]
-    assert by(mixed, "model.cache_clone") == [slot, full]
-    assert by(solo, "model.cache_clone") == by(solo, "step.merge") == [full]
+    at_one_position = full // eng.max_len  # every leaf is (rep, B, S, ...)
+    for recs in (mixed, solo):
+        assert by(recs, "step.merge") == [at_one_position] * 2
+        assert by(recs, "step.write_slot") == by(recs, "model.cache_clone") \
+            == []
+    state = eng.state
+    with spans.recording():
+        steps.make_mixed_step(eng.cfg, C)(
+            eng.params, state, 3, torch.zeros(C, dtype=torch.int32),
+            torch.zeros((1, 1), dtype=torch.int32))
+        steps.make_decode_step(eng.cfg)(eng.params, state)
+    assert by(spans.records(), "model.cache_clone") == [full, full]
 
 
 def test_the_served_tokens_do_not_depend_on_the_spans():
