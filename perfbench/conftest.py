@@ -3,6 +3,8 @@ mix cut to a size the CPU runs in seconds (the same keys, the same code
 paths)."""
 
 import copy
+import dataclasses
+import json
 
 import pytest
 
@@ -27,6 +29,17 @@ def tiny(dtype="float32"):
         c["prompt"]["mean"], c["output"]["mean"] = p, d
     mix.update(rate=25.0, lead_s=0.3)
     return cfg, mix
+
+
+def model_json(mcfg) -> dict:
+    """The port's ``ModelConfig`` as a configuration file's ``model``
+    block: through JSON, with the fields that are None left out."""
+    def drop_none(x):
+        if isinstance(x, dict):
+            return {k: drop_none(v) for k, v in x.items() if v is not None}
+        return x
+
+    return json.loads(json.dumps(drop_none(dataclasses.asdict(mcfg))))
 
 
 class StepClock:

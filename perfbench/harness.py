@@ -7,11 +7,14 @@ configuration and traffic mix, and the harness loads
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import importlib.util
 import json
 import sys
 import time
+import types
+import typing
 from pathlib import Path
 
 import numpy as np
@@ -68,16 +71,31 @@ class Run:
 
 
 def _model_config(cfg: dict):
-    from repro_torch.models.config import (AttentionConfig, ModelConfig,
-                                           MoEConfig, SSMConfig)
+    """The configuration's ``model`` block as the port's ``ModelConfig``."""
+    from repro_torch.models.config import ModelConfig
 
-    m = dict(cfg["model"])
-    for key, cls in (("attn", AttentionConfig), ("moe", MoEConfig),
-                     ("ssm", SSMConfig)):
-        if key in m:
-            m[key] = cls(**m[key])
-    m["pattern"] = tuple(m["pattern"])
-    return ModelConfig(**m)
+    return _from_json(ModelConfig, cfg["model"])
+
+
+def _from_json(tp, v):
+    """``v``, read from JSON, as the port's type ``tp``: a dataclass from an
+    object whose keys are its fields, built field by field from the
+    dataclass's own type hints; a tuple from a list. An unknown key
+    raises."""
+    if v is None:
+        return None
+    if typing.get_origin(tp) in (typing.Union, types.UnionType):  # X | None
+        (tp,) = [a for a in typing.get_args(tp) if a is not type(None)]
+    if dataclasses.is_dataclass(tp):
+        hints = typing.get_type_hints(tp)
+        unknown = sorted(set(v) - set(hints))
+        if unknown:
+            raise ValueError(f"{tp.__name__} has no field {unknown}")
+        return tp(**{k: _from_json(hints[k], x) for k, x in v.items()})
+    if typing.get_origin(tp) is tuple:  # Tuple[X, ...] or a bare Tuple
+        args = typing.get_args(tp)
+        return tuple(_from_json(args[0], x) for x in v) if args else tuple(v)
+    return v
 
 
 def _check_layout(mcfg, params):
@@ -258,6 +276,7 @@ def run_cell(bench: dict, workload: str, *, seed: int, seconds: float,
     log(f"[perfbench] {workload} seed {seed}: {len(rec.requests)} requests "
         f"generated, {len(rec.lateness)} released; generator lateness ms "
         f"p50 {late[0]!r} p95 {late[1]!r} max {late[2]!r}")
+    log(f"[perfbench] {_step_note(rec)}")
     peak = int(torch.cuda.max_memory_allocated()) if device == "cuda" else 0
     dev_name = torch.cuda.get_device_name() if device == "cuda" else "cpu"
     del engine
@@ -311,3 +330,17 @@ def run_cell(bench: dict, workload: str, *, seed: int, seconds: float,
 
 def _ms(v):
     return None if v is None else 1e3 * v
+
+
+def _step_note(rec) -> str:
+    """The window's iterations by mode: how many, and the time from the
+    previous iteration's end to this one's (a token gap), p50 / p95 / max
+    in ms; the spread of ``tpot_p95_ms`` is read against it."""
+    its = rec.iterations
+    parts = []
+    for mode in ("mixed", "solo"):
+        gaps = [1e3 * (b.t1 - a.t1) for a, b in zip(its, its[1:])
+                if b.mode == mode and rec.open <= b.t1 < rec.close]
+        q = np.percentile(gaps, (50, 95, 100)).tolist() if gaps else []
+        parts.append(f"{mode} {len(gaps)} gap ms {q!r}")
+    return "window steps: " + "; ".join(parts)

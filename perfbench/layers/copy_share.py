@@ -1,8 +1,10 @@
 """Engine step (``serving/steps.py``, ``models/model.py``): device time
-launched under the step's cache copies (spans ``step.write_slot``: the
-clone and write of the sub-cache; ``step.merge``: the decode's
-``torch.where`` over the caches; ``model.cache_clone``: the per-segment
-clone) over all device time in the trace, in percent."""
+launched under the step's cache copies (spans ``step.write_slot``: a leaf
+the chunk gave a dtype of its own written back into the slot;
+``step.merge``: a masked decode keeping, then putting back, what inactive
+rows held at the one written position; ``model.cache_clone``: the copy in
+front of the pure entry points, off the engine's path) over all device
+time in the trace, in percent."""
 
 from perfbench.attribution import device_share
 

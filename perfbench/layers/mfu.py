@@ -1,13 +1,14 @@
 """Model step (``models/``): the model FLOPs of the window's untraced
 iterations (``roofline/model.py``: served tokens through the weights they
 touch, attention over their real context) over those iterations' host
-wall times the card's bf16 peak, in percent."""
+wall times the card's bf16 peak, in percent. None for a model the
+roofline cannot count."""
 
-from perfbench.roofline.model import iteration_flops
+from perfbench.roofline.model import countable, iteration_flops
 
 
 def read(run):
-    if run.peaks is None or "moe" not in run.cfg["model"]:
+    if run.peaks is None or not countable(run.cfg["model"]):
         return None
     rec = run.rec
     lo, hi = rec.traced or (-1, -2)
