@@ -17,6 +17,7 @@ from typing import Optional, Sequence, Tuple
 __all__ = [
     "AttentionConfig",
     "MLAConfig",
+    "YaRNConfig",
     "MoEConfig",
     "SSMConfig",
     "RGLRUConfig",
@@ -43,6 +44,22 @@ class AttentionConfig:
 
 
 @dataclass(frozen=True)
+class YaRNConfig:
+    """YaRN's stretch of the rotary frequencies (DeepSeek-V3's
+    ``rope_scaling``): frequencies below the band set by ``beta_fast`` and
+    ``beta_slow`` rotations over ``original_max_len`` are divided by
+    ``factor``, those above it kept, a linear ramp between; the softmax
+    scale is multiplied by (0.1 ln(factor) ``mscale_all_dim`` + 1)^2."""
+
+    factor: float
+    original_max_len: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 1.0
+
+
+@dataclass(frozen=True)
 class MLAConfig:
     """DeepSeek multi-head latent attention."""
 
@@ -53,6 +70,10 @@ class MLAConfig:
     qk_rope_dim: int = 64
     v_head_dim: int = 128
     rope_theta: float = 10000.0
+    # DeepSeek-V3's RMSNorms on the query latent and on the KV latent (the
+    # cache holds the normed latent)
+    latent_norms: bool = False
+    yarn: Optional[YaRNConfig] = None
 
 
 @dataclass(frozen=True)
@@ -63,6 +84,19 @@ class MoEConfig:
     n_shared: int = 0  # shared (always-on) experts
     capacity_factor: float = 1.25
     router_scale: bool = True  # normalise top-k gate weights to sum 1
+    # the router's width when only ``n_experts`` of its experts are held
+    # here (expert parallelism): experts [expert_offset, expert_offset +
+    # n_experts) of ``router_experts``; None: every expert is held
+    router_experts: Optional[int] = None
+    expert_offset: int = 0
+    # DeepSeek-V3's gate: "sigmoid" scores with a learned selection bias
+    # added, experts chosen within the ``topk_groups`` best of ``n_groups``
+    # groups (a group's score: its top two biased scores), the weights
+    # times ``routed_scale``
+    scoring: str = "softmax"  # softmax | sigmoid
+    n_groups: int = 1
+    topk_groups: int = 1
+    routed_scale: float = 1.0
     # mesh axes for the dispatch buffer (expert_dim, capacity_dim): aligning
     # the capacity dim with the token (data) axis turns GSPMD's giant
     # buffer all-reduces into local scatters + activation-sized all-to-alls

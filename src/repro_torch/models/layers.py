@@ -66,19 +66,33 @@ def apply_mlp(p: dict, x, act: str):
 
 
 @functools.lru_cache(maxsize=64)
-def _rope_freqs(dim: int, theta: float, device: torch.device):
+def _rope_freqs(dim: int, theta: float, device: torch.device, yarn=None):
     """The reference's numpy f32 frequency table, on ``device`` once (a
-    host-to-device copy in every layer would wait on the card)."""
+    host-to-device copy in every layer would wait on the card).  ``yarn``
+    (a ``YaRNConfig``): DeepSeek-V3's ``precompute_freqs_cis`` stretch,
+    f / factor below the band [floor(corr(beta_fast)),
+    ceil(corr(beta_slow))] of indices, f above it, a linear ramp between,
+    where corr(r) = dim ln(original_max_len / (2 pi r)) / (2 ln theta)."""
     freqs = 1.0 / (
         theta ** (np.arange(0, dim, 2, dtype=np.float32) / dim)
     )
+    if yarn is not None:
+        def corr(rot):
+            return dim * np.log(yarn.original_max_len / (rot * 2 * np.pi)) \
+                / (2 * np.log(theta))
+
+        lo = max(int(np.floor(corr(yarn.beta_fast))), 0)
+        hi = min(int(np.ceil(corr(yarn.beta_slow))), dim - 1)
+        ramp = np.clip((np.arange(dim // 2, dtype=np.float32) - lo)
+                       / max(hi - lo, 1e-3), 0, 1)
+        freqs = freqs / np.float32(yarn.factor) * ramp + freqs * (1 - ramp)
     return torch.from_numpy(freqs.astype(np.float32)).to(device)
 
 
-def rope_table(positions, dim: int, theta: float):
+def rope_table(positions, dim: int, theta: float, yarn=None):
     """positions (...,) -> (sin, cos) of shape (..., dim//2), f32."""
     ang = positions[..., None].float() * _rope_freqs(dim, theta,
-                                                     positions.device)
+                                                     positions.device, yarn)
     return torch.sin(ang), torch.cos(ang)
 
 

@@ -7,6 +7,13 @@ queries are projected into latent space (q_nope @ W_uk) so scores are
 taken directly against the latent cache, and the attention output stays
 in latent space until the per-head W_uv/W_o projection.
 
+DeepSeek-V3's parts are switched on by the config: ``latent_norms``
+RMSNorms the query latent before W_uq and the KV latent before it is
+cached (the cache holds the normed latent, as the published ``kv_norm``
+does); ``yarn`` stretches the rotary frequencies and multiplies the
+softmax scale by mscale^2 (:func:`_softmax_scale`), on the whole prefill,
+the continuation chunk and the decode alike.
+
 Scores and softmax run in f32 (the reference's
 ``preferred_element_type=jnp.float32``: both operands widened before the
 contraction), the probabilities are cast back to the activations' dtype,
@@ -25,7 +32,7 @@ import torch
 from ..compat import resolve_device
 from .attention import _NEG, _dequantize_kv, _einsum, _quantize_kv, _scatter
 from .config import MLAConfig
-from .layers import apply_rope, rope_table
+from .layers import apply_rope, rmsnorm, rope_table
 from .params import PDef
 
 __all__ = ["mla_defs", "mla_prefill", "mla_decode", "init_mla_cache"]
@@ -36,7 +43,7 @@ def mla_defs(cfg: MLAConfig, d_model: int) -> dict:
     s_q = 1.0 / np.sqrt(cfg.q_lora_rank)
     s_kv = 1.0 / np.sqrt(cfg.kv_lora_rank)
     s_o = 1.0 / np.sqrt(H * cfg.v_head_dim)
-    return {
+    defs = {
         "w_dq": PDef((d_model, cfg.q_lora_rank), ("embed", "q_lora")),
         "w_uq": PDef(
             (cfg.q_lora_rank, H, cfg.qk_nope_dim + cfg.qk_rope_dim),
@@ -55,6 +62,10 @@ def mla_defs(cfg: MLAConfig, d_model: int) -> dict:
         "wo": PDef((H, cfg.v_head_dim, d_model), ("heads", None, "embed"),
                    scale=s_o),
     }
+    if cfg.latent_norms:  # RMSNorm scales, (1 + scale)
+        defs["q_norm"] = PDef((cfg.q_lora_rank,), ("q_lora",), "zeros")
+        defs["kv_norm"] = PDef((cfg.kv_lora_rank,), ("kv_lora",), "zeros")
+    return defs
 
 
 def init_mla_cache(cfg: MLAConfig, batch: int, max_len: int, dtype,
@@ -102,12 +113,27 @@ def _mla_read(cache, dtype):
 
 
 def _rope(cfg: MLAConfig, x, positions):
-    sin, cos = rope_table(positions, cfg.qk_rope_dim, cfg.rope_theta)
+    sin, cos = rope_table(positions, cfg.qk_rope_dim, cfg.rope_theta,
+                          cfg.yarn)
     return apply_rope(x, sin, cos)
+
+
+def _softmax_scale(cfg: MLAConfig) -> float:
+    """1/sqrt(qk head size), times YaRN's mscale^2 (DeepSeek-V3's
+    ``MLA.softmax_scale``)."""
+    scale = 1.0 / np.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    y = cfg.yarn
+    if y is not None and y.factor > 1:
+        if y.mscale != y.mscale_all_dim:  # would scale the rotary cos/sin
+            raise ValueError("YaRN with mscale != mscale_all_dim")
+        scale *= (0.1 * y.mscale_all_dim * np.log(y.factor) + 1.0) ** 2
+    return scale
 
 
 def _queries(cfg: MLAConfig, p, x, positions):
     q = torch.einsum("bsd,dr->bsr", x, p["w_dq"].to(x.dtype))
+    if cfg.latent_norms:
+        q = rmsnorm(q, p["q_norm"])
     q = torch.einsum("bsr,rhk->bshk", q, p["w_uq"].to(x.dtype))
     q_nope = q[..., : cfg.qk_nope_dim]
     q_rope = _rope(cfg, q[..., cfg.qk_nope_dim:], positions)
@@ -117,6 +143,8 @@ def _queries(cfg: MLAConfig, p, x, positions):
 def _latents(cfg: MLAConfig, p, x, positions):
     """The token's cache entries: latent c_kv and the roped shared key."""
     c_kv = torch.einsum("bsd,dr->bsr", x, p["w_dkv"].to(x.dtype))
+    if cfg.latent_norms:
+        c_kv = rmsnorm(c_kv, p["kv_norm"])
     k_rope = torch.einsum("bsd,dk->bsk", x, p["w_kr"].to(x.dtype))
     return c_kv, _rope(cfg, k_rope[:, :, None, :], positions)[:, :, 0, :]
 
@@ -134,13 +162,16 @@ def _out(p, ctx, x_dtype, eq_uv, eq_o):
 
 
 def mla_prefill(cfg: MLAConfig, p, x, positions, cache=None, block_q=512,
-                continuation=False):
+                continuation=False, kv_len=None):
     """Full-sequence MLA (causal); writes the latent cache in place.
 
     ``continuation=True``: chunked-prefill semantics -- the chunk's latents
     are merged into the cache first and queries attend over the cached
     context (absolute positions assumed uniform across batch rows).
-    Otherwise queries attend over the chunk's own latents in blocks of
+    ``kv_len`` (a host int, above every query's position) cuts that
+    context to the cache's first ``kv_len`` slots: the keys past it are
+    masked for every query, so the scores stop there.  Otherwise
+    queries attend over the chunk's own latents in blocks of
     ``block_q``, each restricted statically to the keys at or before its
     last query.
     """
@@ -157,11 +188,13 @@ def mla_prefill(cfg: MLAConfig, p, x, positions, cache=None, block_q=512,
 
     # absorbed scores: q_lat = q_nope @ W_uk  -> (B,S,H,r)
     q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"].to(x.dtype))
-    scale = 1.0 / np.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    scale = _softmax_scale(cfg)
     if continuation:
         if new_cache is None:
             raise ValueError("continuation needs a cache")
-        ckv_all, krope_all = _mla_read(new_cache, x.dtype)
+        ctx_cache = new_cache if kv_len is None else \
+            {k: v[:, :kv_len] for k, v in new_cache.items()}
+        ckv_all, krope_all = _mla_read(ctx_cache, x.dtype)
         qpos = positions[0] if positions.dim() > 1 else positions
         sc = _scores("bqhr,bsr->bhqs", "bqhk,bsk->bhqs", q_lat, q_rope,
                      ckv_all, krope_all, scale)
@@ -202,7 +235,7 @@ def mla_decode(cfg: MLAConfig, p, x, positions, cache):
     S = ckv_all.shape[1]
     q_lat = torch.einsum("bshk,rhk->bshr", q_nope,
                          p["w_uk"].to(x.dtype))[:, 0]
-    scale = 1.0 / np.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    scale = _softmax_scale(cfg)
     sc = _scores("bhr,bsr->bhs", "bhk,bsk->bhs", q_lat, q_rope[:, 0],
                  ckv_all, krope_all, scale)
     valid = torch.arange(S, device=x.device)[None, :] <= positions[:, None]

@@ -214,11 +214,12 @@ def _cross_attention(cfg: ModelConfig, p, x, xk, xv):
 
 def _apply_block(cfg: ModelConfig, spec: BlockSpec, p, x, *, positions,
                  mode, cache, prefix_len=None, enc_out=None,
-                 kernel_impl="xla", continuation=False):
+                 kernel_impl="xla", continuation=False, kv_len=None):
     """One layer. mode: "train" | "prefill" | "decode".  "train" is
     "prefill" with no cache: attention runs :func:`blockwise_attention`
     (``kernel_impl="xla"``, the reference's training default), and no
-    cache is written."""
+    cache is written.  ``kv_len``: see :func:`forward_prefill`; only the
+    latent attention reads it."""
     h = _apply_norm(cfg, p["ln1"], x)
     new_cache = dict(cache) if cache is not None else None
     with span("model.mixer"):
@@ -247,7 +248,8 @@ def _apply_block(cfg: ModelConfig, spec: BlockSpec, p, x, *, positions,
                 out, nc = mla_decode(cfg.mla, p["mla"], h, positions, sub)
             else:
                 out, nc = mla_prefill(cfg.mla, p["mla"], h, positions,
-                                      cache=sub, continuation=continuation)
+                                      cache=sub, continuation=continuation,
+                                      kv_len=kv_len)
         elif spec.mixer in ("ssm", "rec"):
             # both ignore ``continuation``, as in the reference: rec starts
             # from the cache's conv and state, ssm from its conv and a zero
@@ -299,7 +301,8 @@ def _apply_block(cfg: ModelConfig, spec: BlockSpec, p, x, *, positions,
 
 def _run_segments(cfg: ModelConfig, params, x, *, positions, mode, caches,
                   prefix_len=None, enc_out=None, kernel_impl="xla",
-                  continuation=False, remat=False, active=None):
+                  continuation=False, remat=False, active=None,
+                  kv_len=None):
     """The layers over ``x``, writing ``caches`` where they lie.
 
     Returns (x, caches): the same leaves, but for a leaf whose dtype the
@@ -329,7 +332,8 @@ def _run_segments(cfg: ModelConfig, params, x, *, positions, mode, caches,
                         cfg, spec, p_r[f"b{bi}"], x, positions=positions,
                         mode=mode, cache=(c_r[f"b{bi}"] if c_r else None),
                         prefix_len=prefix_len, enc_out=enc_out,
-                        kernel_impl=kernel_impl, continuation=continuation)
+                        kernel_impl=kernel_impl, continuation=continuation,
+                        kv_len=kv_len)
                     if c_r is not None:
                         # KV and latent leaves come back written in place;
                         # the recurrent mixers' small states and the
@@ -539,7 +543,8 @@ def clone_caches(caches):
 
 def forward_prefill_inplace(cfg: ModelConfig, params, tokens, positions,
                             caches, *, prefix_embeds=None, enc_frames=None,
-                            kernel_impl="xla", continuation=False):
+                            kernel_impl="xla", continuation=False,
+                            kv_len=None):
     """:func:`forward_prefill` writing ``caches`` where they lie: returns
     (last-position logits, caches), the caches the same tensors but for a
     leaf the chunk gives a dtype of its own (the cross-attention K/V in
@@ -552,16 +557,18 @@ def forward_prefill_inplace(cfg: ModelConfig, params, tokens, positions,
                            device=positions.device)
         positions = torch.cat([pre[None].expand(B, prefix_len),
                                positions + prefix_len], dim=1)
+        if kv_len is not None:
+            kv_len += prefix_len
     x, caches = _run_segments(
         cfg, params, x, positions=positions, mode="prefill", caches=caches,
         prefix_len=prefix_len, enc_out=enc_out, kernel_impl=kernel_impl,
-        continuation=continuation)
+        continuation=continuation, kv_len=kv_len)
     return _logits(cfg, params, x[:, -1:]), caches
 
 
 def forward_prefill(cfg: ModelConfig, params, tokens, positions, caches, *,
                     prefix_embeds=None, enc_frames=None, kernel_impl="xla",
-                    continuation=False):
+                    continuation=False, kv_len=None):
     """Prefill a chunk; returns (last-position logits, new caches).
 
     positions: (B, S) absolute positions of ``tokens`` (supports chunked /
@@ -571,14 +578,17 @@ def forward_prefill(cfg: ModelConfig, params, tokens, positions, caches, *,
     encoder's stub frame embeddings, which an encoder-decoder config
     needs.  ``kernel_impl="pallas"`` runs whole-prompt attention through
     the prefill attention kernel (B2); ``continuation=True`` attends over
-    the cached context.  The caller's caches stay as they were: the
-    chunk is written into one copy of them.
+    the cached context, and ``kv_len`` (a host int past every token's
+    position) says that no key at or past it is read: the latent
+    attention's scores stop there rather than at the cache's end.  The
+    caller's caches stay as they were: the chunk is written into one
+    copy of them.
     """
     return forward_prefill_inplace(
         cfg, params, tokens, positions,
         clone_caches(caches) if caches is not None else None,
         prefix_embeds=prefix_embeds, enc_frames=enc_frames,
-        kernel_impl=kernel_impl, continuation=continuation)
+        kernel_impl=kernel_impl, continuation=continuation, kv_len=kv_len)
 
 
 def forward_decode_inplace(cfg: ModelConfig, params, tokens, positions,
@@ -628,7 +638,9 @@ def param_count(cfg: ModelConfig) -> int:
 
 
 def active_param_count(cfg: ModelConfig) -> int:
-    """Active params per token (MoE: top_k+shared experts only)."""
+    """Active params per token (MoE: top_k+shared experts only; of experts
+    held here, the expected share of a token's top_k copies that land on
+    them)."""
     total = param_count(cfg)
     if cfg.moe is None:
         return total
@@ -638,5 +650,6 @@ def active_param_count(cfg: ModelConfig) -> int:
         if path[0] in ("w_gate", "w_up", "w_down"))
     n_moe_layers = sum(
         1 for s in cfg.block_specs() if s.channel == "moe")
-    active_frac = cfg.moe.top_k / cfg.moe.n_experts
+    active_frac = cfg.moe.top_k / (cfg.moe.router_experts
+                                   or cfg.moe.n_experts)
     return int(total - n_moe_layers * routed * (1 - active_frac))

@@ -148,7 +148,8 @@ class ServerEngine:
                     self.params, self.state, self.prefill_slot,
                     torch.from_numpy(chunk).to(self.device),
                     torch.full((1, 1), done, dtype=torch.int32,
-                               device=self.device))
+                               device=self.device),
+                    kv_len=done + self.chunk)
                 # fix the slot's length to true progress (chunk may be
                 # padded)
                 slot = self.prefill_slot

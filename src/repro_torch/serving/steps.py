@@ -111,14 +111,16 @@ def make_mixed_step(cfg: ModelConfig, chunk: int, *, inplace: bool = False):
     The chunk runs at batch=1 on the slot's view of the slot-structured
     caches and writes through it; the decode then runs on the same caches
     and masks out the prefilling slot.  ``prefix_embeds``, as in the
-    reference, is prepended to every chunk.  ``inplace`` as in
-    :func:`make_decode_step`.  Returns (state, decode_tokens,
-    chunk_last_logits_token).
+    reference, is prepended to every chunk.  ``kv_len``, a host int past
+    the chunk's last position, cuts the chunk's latent attention there
+    (``models.model.forward_prefill``); the engine gives the chunk's
+    end.  ``inplace`` as in :func:`make_decode_step`.  Returns (state,
+    decode_tokens, chunk_last_logits_token).
     """
     dec = make_decode_step(cfg, inplace=True)
 
     def mixed_step(params, state, p_slot, chunk_tokens, chunk_pos0, *,
-                   enc_frames=None, prefix_embeds=None):
+                   enc_frames=None, prefix_embeds=None, kv_len=None):
         caches = state["caches"] if inplace else \
             M.clone_caches(state["caches"])
         # --- prefill chunk on the designated slot (batch of 1)
@@ -131,7 +133,7 @@ def make_mixed_step(cfg: ModelConfig, chunk: int, *, inplace: bool = False):
             logits, sub = M.forward_prefill_inplace(
                 cfg, params, chunk_tokens[None, :], positions, view,
                 enc_frames=enc_frames, prefix_embeds=prefix_embeds,
-                continuation=True)
+                continuation=True, kv_len=kv_len)
             tok = greedy_sample(logits)
         # a leaf the chunk gave a dtype of its own (the cross-attention
         # K/V in the activations') goes into the slot in the cache's

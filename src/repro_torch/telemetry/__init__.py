@@ -13,6 +13,9 @@
   the phases of ``ServerEngine.step`` and of the model: ``cpu_op`` ranges
   while ``torch.profiler`` runs, records in memory while
   ``spans.recording()`` is on, one flag check otherwise.
+* :mod:`repro_torch.telemetry.counters` -- totals added up on the card
+  under the same gate (the MoE's dispatch: copies kept, dropped, rows
+  launched), read once after a traced window.
 
 An operator records a window of spans and writes it as a Chrome trace::
 

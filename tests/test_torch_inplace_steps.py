@@ -68,11 +68,12 @@ def _cow_mixed(cfg, chunk):
     slot's caches, written into a copy of the caches, then the decode."""
     dec = _cow_decode(cfg)
 
-    def step(params, state, p_slot, tokens, pos0, **stubs):
+    def step(params, state, p_slot, tokens, pos0, kv_len=None, **stubs):
         sub = tree_map(lambda a: a[:, p_slot:p_slot + 1], state["caches"])
         positions = pos0 + torch.arange(chunk, dtype=torch.int32)[None]
         logits, sub = M.forward_prefill(cfg, params, tokens[None], positions,
-                                        sub, continuation=True, **stubs)
+                                        sub, continuation=True,
+                                        kv_len=kv_len, **stubs)
 
         def put(a, s):
             a = a.clone()
@@ -91,9 +92,9 @@ def _cow_mixed(cfg, chunk):
 def _lockstep(pures, step, ptrs, count, **stubs):
     """``step`` in the engine's place, checked against each of ``pures``
     run first on the same state."""
-    def run(params, state, *args):
-        wants = [pure(params, state, *args, **stubs) for pure in pures]
-        got = step(params, state, *args, **stubs)
+    def run(params, state, *args, **kw):
+        wants = [pure(params, state, *args, **kw, **stubs) for pure in pures]
+        got = step(params, state, *args, **kw, **stubs)
         g_leaves = _leaves(got[0])
         assert len(g_leaves) == len(ptrs)
         for want in wants:

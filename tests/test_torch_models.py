@@ -114,7 +114,9 @@ class _Pair:
         return _ref_jit(fn, self.ref_cfg, self.unroll,
                         tuple(sorted(kw.items())))
 
-    def prefill(self, S, pos0=0, **kw):
+    def prefill(self, S, pos0=0, kv_len=None, **kw):
+        """``kv_len`` goes to the port alone: the reference has no such
+        argument and reads the whole cache."""
         toks = self.rng.integers(0, self.cfg.vocab_size, (B, S)).astype(
             np.int32)
         pos = np.broadcast_to(np.arange(pos0, pos0 + S)[None], (B, S)
@@ -125,7 +127,7 @@ class _Pair:
         got, self.tc = TM.forward_prefill(
             self.cfg, self.tp, torch.from_numpy(toks), torch.from_numpy(pos),
             self.tc, **{k: torch.from_numpy(v) for k, v in self.stubs.items()},
-            **kw)
+            kv_len=kv_len, **kw)
         return got, want
 
     def decode(self, pos):
@@ -230,6 +232,53 @@ def test_mla_int8_latents_match_reference():
     assert leaves["c_kv"].dtype == torch.int8
     assert leaves["c_s"].dtype == torch.float16
     _caches_close(pair.tc, pair.rc, REL["float32"])
+
+
+@pytest.mark.parametrize("over", [{}, {"kv_quant": True}],
+                         ids=["latents", "int8-latents"])
+def test_mla_chunks_cut_at_kv_len_match_reference(over):
+    """deepseek-v3's continuation chunks given ``kv_len``, the chunk's end
+    as the engine gives it: the latent attention reads only the cache's
+    first ``kv_len`` slots of 96, and the logits and caches still match
+    the reference's chunks over the whole cache."""
+    pair = _Pair("deepseek-v3-671b", **over)
+    _close(*pair.prefill(40), REL["float32"])
+    for pos0 in (40, 56):
+        _close(*pair.prefill(16, pos0, kv_len=pos0 + 16, continuation=True),
+               REL["float32"])
+    for i in range(2):
+        _close(*pair.decode(72 + i), REL["float32"])
+    _caches_close(pair.tc, pair.rc, REL["float32"])
+
+
+def test_mla_chunk_reads_no_key_past_kv_len():
+    """What lies in the latent cache at or past ``kv_len`` does not reach
+    the chunk: NaN written there leaves its logits as a clean cache gives
+    them, where the chunk over the whole cache reads NaN."""
+    cfg = get_config("deepseek-v3-671b", reduced=True)
+    params = TM.init_model(cfg, torch.Generator().manual_seed(3),
+                           device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (1, 24),
+                         generator=torch.Generator().manual_seed(4))
+    pos = torch.arange(24)[None]
+    caches = TM.init_cache(cfg, 1, 64, torch.float32, "cpu")
+    _, caches = TM.forward_prefill(cfg, params, toks[:, :16], pos[:, :16],
+                                   caches)
+
+    def chunk(junk, kv_len):
+        c = TM.clone_caches(caches)
+        for seg in c:
+            for leaves in seg.values():
+                for a in leaves.values():
+                    a[:, :, 24:] = junk
+        return TM.forward_prefill(cfg, params, toks[:, 16:], pos[:, 16:], c,
+                                  continuation=True, kv_len=kv_len)[0]
+
+    clean = chunk(0.0, None)
+    assert torch.equal(chunk(float("nan"), 24), chunk(0.0, 24))
+    torch.testing.assert_close(chunk(float("nan"), 24), clean, rtol=1e-5,
+                               atol=1e-5)
+    assert torch.isnan(chunk(float("nan"), None)).all()
 
 
 def test_whisper_bf16_caches_keep_cross_attention_kv_in_f32():

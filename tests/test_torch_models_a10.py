@@ -116,8 +116,9 @@ def test_apply_moe_matches_reference_with_capacity_drops(arch,
     cfg = get_config(arch, reduced=True)
     moe = cfg.moe.__class__(**{**cfg.moe.__dict__,
                                "capacity_factor": capacity_factor})
-    ref_moe = ref_get_config(arch, reduced=True).moe.__class__(
-        **{**cfg.moe.__dict__, "capacity_factor": capacity_factor})
+    ref_cls = ref_get_config(arch, reduced=True).moe.__class__
+    ref_moe = ref_cls(**{k: v for k, v in moe.__dict__.items()
+                         if k in ref_cls.__dataclass_fields__})
     tree = _moe_params(cfg, seed=3)
     x = np.random.default_rng(4).standard_normal(
         (2, 48, cfg.d_model)).astype(np.float32)

@@ -108,8 +108,10 @@ def test_loss_and_grads_match_reference(arch):
     plain SSD scan (mamba2), the encoder (whisper) and the prefix-LM
     (paligemma): the loss and every grad leaf at f32 1e-5."""
     over = _moe_drops(arch)
-    ref_over = ({"moe": ref_get_config(arch, reduced=True).moe.__class__(
-        **over["moe"].__dict__)} if over else {})
+    ref_cls = ref_get_config(arch, reduced=True).moe.__class__
+    ref_over = ({"moe": ref_cls(**{
+        k: v for k, v in over["moe"].__dict__.items()
+        if k in ref_cls.__dataclass_fields__})} if over else {})
     rcfg = ref_get_config(arch, reduced=True).replace(**ref_over)
     cfg = get_config(arch, reduced=True).replace(**over)
     B, S = 2, 32
