@@ -13,7 +13,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. kernels vs plain -- calls each kernel's wrapper on the card at the
    shapes the calibration loop gives it (bf16 and f32), at the shapes of
    phase 6 (the engine's decode, B=4 S=256; the whole-prompt prefill,
-   B=4 S=2048), at odd and masked
+   B=4 S=2048), at the grok cells' chunk (B2 with a query offset and a
+   key length read on the card: 512 queries, 48 heads over 8, D=128,
+   softcap 30, over one slot of an (8, 8192, 8, 128) cache ending at
+   512, 2048, 6144 and 8192 keys, NaN past the end), at odd and masked
    shapes, and at one large shape per kernel and dtype, and holds each
    result to the kernel's plain PyTorch version on the same inputs
    (``TOL``).  Each bf16 prefill call must go through the tensor-core
@@ -566,14 +569,34 @@ def _prefill_cases(torch, gen, dt):
                   *make(4608, window=4096, **gemma)))
     cases.append(("B=1 S=4608 D=256 gemma2 global softcap=50",
                   *make(4608, **gemma)))
+    # the grok cells' mixed step: a 512-token chunk over one slot of the
+    # (8, 8192, 8, 128) cache, ending at 512 .. 8192 keys, offset and
+    # length read on the card; each chunk has a slot of its own, NaN past
+    # its end, which must not reach it
+    k, v = (torch.randn(8, 8192, 8, 128, generator=gen, device="cuda",
+                        dtype=dt) for _ in range(2))
+    for slot, off in enumerate((0, 1536, 5632, 7680)):
+        end = off + 512
+        k[slot, end:], v[slot, end:] = float("nan"), float("nan")
+        q = torch.randn(1, 512, 48, 128, generator=gen, device="cuda",
+                        dtype=dt)
+        kw = dict(attn_softcap=30.0, **{
+            n: torch.tensor([x], dtype=torch.int32, device="cuda")
+            for n, x in (("q_offset", off), ("kv_len", end))})
+        cases.append((f"C=512 kv_len={end} H=48 KV=8 D=128 grok chunk "
+                      f"softcap=30", (q, k[slot:slot + 1], v[slot:slot + 1]),
+                      kw))
     return cases
 
 
-def _pairs(torch, S, causal=True, window=None, prefix_len=None) -> int:
-    """Valid (query, key) pairs of a prefill mask: the work it needs."""
-    qp = torch.arange(S)[:, None]
-    kp = torch.arange(S)[None, :]
-    mask = torch.ones(S, S, dtype=torch.bool)
+def _pairs(torch, S, causal=True, window=None, prefix_len=None,
+           q_offset=0, kv_len=None) -> int:
+    """Valid (query, key) pairs of a prefill mask: the work it needs.  A
+    chunk's S queries sit at q_offset .. q_offset + S - 1 over kv_len
+    keys (S without a chunk)."""
+    qp = q_offset + torch.arange(S)[:, None]
+    kp = torch.arange(S if kv_len is None else kv_len)[None, :]
+    mask = torch.ones(qp.shape[0], kp.shape[1], dtype=torch.bool)
     if causal:
         mask &= kp <= qp
     if window is not None:
@@ -626,7 +649,11 @@ def _decode_row(torch, ms, n_sm, dname, desc, args, kw, kv_read):
 
 def _prefill_row(torch, ms, dname, desc, args, kw):
     """One B2 check: the call must take its dtype's route (bf16 ``tc``,
-    f32 ``fp32``); kernel against plain, with times and the bound."""
+    f32 ``fp32``); kernel against plain, with times and the bound.  A
+    chunk (``q_offset`` and ``kv_len``, one batch row) is held to the
+    plain version over its first kv_len keys, as are its work and its
+    library time: SDPA with the chunk's causal mask over those keys,
+    without the softcap, which SDPA lacks."""
     from repro_torch.kernels.prefill_attention.ops import (
         prefill_attention, prefill_attention_plain)
 
@@ -639,13 +666,20 @@ def _prefill_row(torch, ms, dname, desc, args, kw):
     if getattr(prefill_attention, f"launches_{route}") != n_route + 1:
         raise AssertionError(f"prefill_attention {dname} {desc}: did not "
                              f"launch the {route} route")
+    B, S = q.shape[:2]
+    off, n_kv = 0, None
+    if "kv_len" in kw:  # a chunk over the cache, one batch row
+        off, n_kv = int(kw["q_offset"][0]), int(kw["kv_len"][0])
+        k, v = k[:, :n_kv], v[:, :n_kv]
     ref = prefill_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     err = _check(torch, "prefill_attention", out, ref, dname, desc)
-    B, S = q.shape[:2]
     pairs = B * _pairs(torch, S, kw.get("causal", True), kw.get("window"),
-                       kw.get("prefix_len"))
-    bytes_ = B * (2 * S * H * D + 2 * S * KV * D) * el
+                       kw.get("prefix_len"), off, n_kv)
+    n_keys = S if n_kv is None else n_kv
+    bytes_ = B * (2 * S * H * D + 2 * n_keys * KV * D) * el
+    if n_kv is not None:
+        bytes_ += 2 * 4 * B  # q_offset and kv_len
     flops = 4.0 * pairs * H * D
     lib = None
     if set(kw) <= {"causal"}:
@@ -654,8 +688,12 @@ def _prefill_row(torch, ms, dname, desc, args, kw):
         kp = torch.arange(S, device=q.device)
         mask = (kp[None, :] <= kp[:, None]) | (kp[None, :] < kw["prefix_len"])
         lib = ms(_sdpa(torch, q, k, v, attn_mask=mask))
+    elif n_kv is not None:  # SDPA with the chunk's causal mask
+        qp = off + torch.arange(S, device=q.device)
+        mask = torch.arange(n_kv, device=q.device)[None, :] <= qp[:, None]
+        lib = ms(_sdpa(torch, q, k, v, attn_mask=mask))
     row = dict(shape=desc, dtype=dname, max_abs_err=err, route=route,
-               ms=ms(lambda: prefill_attention(q, k, v, **kw)),
+               ms=ms(lambda: prefill_attention(*args, **kw)),
                plain_ms=ms(lambda: prefill_attention_plain(q, k, v, **kw)),
                library_ms=lib)
     row["bound_ms"], row["bound_by"] = _bound(dname, bytes_, flops)
@@ -1233,7 +1271,8 @@ def _reduced_matches_cpu(torch, arch, tag="attn"):
                                          device=dev))[None].expand(2, -1)
                 lg, caches = M.forward_prefill(
                     small, p, t, pos, caches, kernel_impl="pallas",
-                    continuation=cont, **kw)
+                    continuation=cont,
+                    kv_len=p0 + t.shape[1] if cont else None, **kw)
             outs[dev].append(lg.cpu())
     err = max(float((a - b).abs().max())
               for a, b in zip(outs["cpu"], outs["cuda"]))
@@ -3411,9 +3450,11 @@ def main() -> int:
     launches["decode_attention"] += dry_b1
     print(f"[dry] phase 12 in {time.perf_counter() - t0:.1f} s ({smi})")
 
-    # the main path's largest shape per kernel stands for it in the line
+    # the shape of each kernel's main path stands for it in the line:
+    # B1's and B3's calibration and engine calls, B2's grok-cell chunk
     main_shape = {"decode_attention": "B=16 S=512 main",
-                  "prefill_attention": "C=512 causal main",
+                  "prefill_attention": "C=512 kv_len=2048 H=48 KV=8 D=128 "
+                                       "grok chunk softcap=30",
                   "ssd_scan": "B=1 S=16 H=24 engine chunk"}
     sources = {"decode_attention": (
         "src/repro_torch/kernels/csrc/decode_attention.cu",

@@ -1,12 +1,16 @@
 // Flash-attention forward for prefill, for sm_90a.
 //
 // Replaces the TPU kernel src/repro/kernels/prefill_attention/kernel.py
-// (prefill_attention_pallas): q (B,S,H,D), k/v (B,S,KV,D) -> (B,S,H,D),
-// with GQA through kv head = h / (H/KV), causal, sliding-window and
-// prefix-LM masks and a tanh softcap.  Query and key positions are the
-// sequence indices; keys at or past the true S are masked here, so any S
-// is exact (the TPU wrapper's zero padding attended to padded keys when
-// causal=False: ROADMAP C-ref1).
+// (prefill_attention_pallas): q (B,Sq,H,D), k/v (B,Skv,KV,D) ->
+// (B,Sq,H,D), with GQA through kv head = h / (H/KV), causal,
+// sliding-window and prefix-LM masks and a tanh softcap.  Key positions
+// are the cache's slot indices; query row i of batch row b sits at
+// position q_offset[b] + i, and keys at or past kv_len[b] are neither
+// read nor attended.  Both are int32 device arrays read by the kernel (a
+// chunk of a longer cache launches with no host sync); null means 0 and
+// Skv, the whole prompt (Sq = Skv = S), where keys at or past the true S
+// are masked, so any S is exact (the TPU wrapper's zero padding attended
+// to padded keys when causal=False: ROADMAP C-ref1).
 //
 // What bounds it: operations.  Causal prefill does ~2*S^2*H*D FLOPs on
 // 2*S*(H+2*KV)*D*bytes of input, far above the byte bound at the chunk
@@ -36,7 +40,8 @@
 //   and a 4 x D/16 patch of the output.
 //
 // Both routes skip key tiles that the causal or window mask rules out
-// entirely, so causal prefill does S^2/2 work.
+// entirely, so causal prefill does S^2/2 work, and a chunk reads the
+// cache only up to its last row's position or kv_len, whichever is less.
 
 #include <math.h>
 #include <stdint.h>
@@ -201,16 +206,17 @@ __device__ __forceinline__ void wgmma_rs16(float (&d)[8],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
 }
 
-// ROWS rows from row0 of a (rows, stride) bf16 matrix into a swizzled tile
+// ROWS rows from row0 of a (rows, stride) bf16 matrix into a swizzled
+// tile; rows at or past n are zero-filled
 template <int D, int ROWS>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const __nv_bfloat16* src,
-                                          size_t stride, int row0, int S,
+                                          size_t stride, int row0, int n,
                                           int tid) {
   constexpr int CPR = D / 8;  // 16-byte chunks per row
   for (int i = tid; i < ROWS * CPR; i += kThreads) {
     const int r = i / CPR, c = i % CPR;
-    const bool ok = row0 + r < S;
+    const bool ok = row0 + r < n;
     cp_async16(dst + swz<D, ROWS>(r, c),
                src + (size_t)(ok ? row0 + r : 0) * stride + c * 8, ok);
   }
@@ -221,9 +227,10 @@ __global__ void __launch_bounds__(kThreads)
 prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ out, int S, int H, int KV,
-                  int causal, int window, int prefix_len, float scale,
-                  float softcap) {
+                  __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H,
+                  int KV, const int* __restrict__ q_offset,
+                  const int* __restrict__ kv_len, int causal, int window,
+                  int prefix_len, float scale, float softcap) {
   using Cfg = Tile<D>;
   constexpr int BK = Cfg::BK, NT = D / 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -237,20 +244,24 @@ prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / G;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // position of query row 0, and the keys this batch row has
+  const int qo = q_offset ? q_offset[b] : 0;
+  const int S = kv_len ? max(0, min(kv_len[b], Skv)) : Skv;
 
   int kt_begin = 0, kt_end = (S + BK - 1) / BK;
   if (prefix_len < 0) {
-    if (causal) kt_end = min(kt_end, (min(q0 + kBQ, S) + BK - 1) / BK);
-    if (window > 0) kt_begin = max(0, q0 - window + 1) / BK;
+    if (causal)
+      kt_end = min(kt_end, (qo + min(q0 + kBQ, Sq) + BK - 1) / BK);
+    if (window > 0) kt_begin = max(0, qo + q0 - window + 1) / BK;
   }
   const int nt = kt_end - kt_begin;
-  const int q_last = min(q0 + kBQ, S) - 1;
+  const int q_last = qo + min(q0 + kBQ, Sq) - 1;  // a position
 
-  const __nv_bfloat16* kb = k + ((size_t)b * S * KV + kvh) * D;
-  const __nv_bfloat16* vb = v + ((size_t)b * S * KV + kvh) * D;
+  const __nv_bfloat16* kb = k + ((size_t)b * Skv * KV + kvh) * D;
+  const __nv_bfloat16* vb = v + ((size_t)b * Skv * KV + kvh) * D;
   const size_t kv_stride = (size_t)KV * D;
-  load_tile<D, kBQ>(q_s, q + ((size_t)b * S * H + h) * D, (size_t)H * D,
-                      q0, S, tid);
+  load_tile<D, kBQ>(q_s, q + ((size_t)b * Sq * H + h) * D, (size_t)H * D,
+                      q0, Sq, tid);
   load_tile<D, BK>(kv_s, kb, kv_stride, kt_begin * BK, S, tid);
   load_tile<D, BK>(kv_s + Cfg::KV_BYTES, vb, kv_stride, kt_begin * BK, S,
                      tid);
@@ -269,7 +280,8 @@ prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
   float m[2] = {kMinM, kMinM}, l[2] = {0.f, 0.f};
-  const int row_a = q0 + warp * 16 + (lane >> 2);  // this lane's rows: +0, +8
+  // this lane's rows: +0, +8 (positions)
+  const int row_a = qo + q0 + warp * 16 + (lane >> 2);
   // the softmax runs in base 2: raw scores are scaled inside the
   // exponent's FMA; with a softcap they are capped and scaled first
   const float c2 = softcap > 0.f ? 1.f : scale * kLog2e;
@@ -317,7 +329,7 @@ prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
     // a tile is masked element by element only where an edge crosses it
     bool full = k0 + BK <= S;
     if (!(prefix_len >= 0 && k0 + BK <= prefix_len)) {
-      if (causal) full = full && k0 + BK - 1 <= q0;
+      if (causal) full = full && k0 + BK - 1 <= qo + q0;
       if (window > 0) full = full && q_last - k0 < window;
     }
 #pragma unroll
@@ -408,10 +420,10 @@ prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    const int row = row_a + 8 * i;
-    if (row >= S) continue;
+    const int row = row_a - qo + 8 * i;
+    if (row >= Sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    __nv_bfloat16* orow = out + (((size_t)b * S + row) * H + h) * D;
+    __nv_bfloat16* orow = out + (((size_t)b * Sq + row) * H + h) * D;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + 2 * (lane & 3)) =
@@ -421,19 +433,21 @@ prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int H, int KV, int causal, int window, int prefix_len,
+           int Sq, int Skv, int H, int KV, const int* q_offset,
+           const int* kv_len, int causal, int window, int prefix_len,
            float scale, float softcap, cudaStream_t stream) {
   static size_t allowed[kMaxDevices] = {};
   cudaError_t err =
       allow_smem(reinterpret_cast<const void*>(prefill_tc_kernel<D>),
                  Tile<D>::SMEM, allowed);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
+  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   prefill_tc_kernel<D><<<grid, kThreads, Tile<D>::SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      S, H, KV, causal, window, prefix_len, scale, softcap);
+      Sq, Skv, H, KV, q_offset, kv_len, causal, window, prefix_len, scale,
+      softcap);
   return (int)cudaGetLastError();
 }
 
@@ -458,9 +472,10 @@ constexpr size_t smem_bytes() {
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, float* __restrict__ out, int S,
-               int H, int KV, int causal, int window, int prefix_len,
-               float scale, float softcap) {
+               const float* __restrict__ v, float* __restrict__ out, int Sq,
+               int Skv, int H, int KV, const int* __restrict__ q_offset,
+               const int* __restrict__ kv_len, int causal, int window,
+               int prefix_len, float scale, float softcap) {
   using T = float;
   extern __shared__ float smem[];
   constexpr int DP = D + 1;
@@ -478,12 +493,15 @@ prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / G;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  // position of query row 0, and the keys this batch row has
+  const int qo = q_offset ? q_offset[b] : 0;
+  const int S = kv_len ? max(0, min(kv_len[b], Skv)) : Skv;
 
   for (int c = tid; c < kBQ * CPR; c += kThreads) {
     const int r = c / CPR, dv = (c % CPR) * VN;
     float tmp[VN];
-    if (q0 + r < S) {
-      Vec<T>::load(q + (((size_t)b * S + q0 + r) * H + h) * D + dv, tmp);
+    if (q0 + r < Sq) {
+      Vec<T>::load(q + (((size_t)b * Sq + q0 + r) * H + h) * D + dv, tmp);
     } else {
 #pragma unroll
       for (int i = 0; i < VN; ++i) tmp[i] = 0.f;
@@ -505,8 +523,9 @@ prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // key tiles that can hold a valid key for some row of this query tile
   int kt_begin = 0, kt_end = (S + kBK - 1) / kBK;
   if (prefix_len < 0) {
-    if (causal) kt_end = min(kt_end, (min(q0 + kBQ, S) + kBK - 1) / kBK);
-    if (window > 0) kt_begin = max(0, q0 - window + 1) / kBK;
+    if (causal)
+      kt_end = min(kt_end, (qo + min(q0 + kBQ, Sq) + kBK - 1) / kBK);
+    if (window > 0) kt_begin = max(0, qo + q0 - window + 1) / kBK;
   }
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
@@ -516,7 +535,7 @@ prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int r = c / CPR, dv = (c % CPR) * VN;
       float tk[VN], tv[VN];
       if (k0 + r < S) {
-        const size_t off = (((size_t)b * S + k0 + r) * KV + kvh) * D + dv;
+        const size_t off = (((size_t)b * Skv + k0 + r) * KV + kvh) * D + dv;
         Vec<T>::load(k + off, tk);
         Vec<T>::load(v + off, tv);
       } else {
@@ -552,7 +571,7 @@ prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float alpha[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
+      const int qpos = qo + q0 + ty * 4 + i;
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -609,10 +628,10 @@ prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + ty * 4 + i;
-    if (qpos >= S) continue;
+    const int row = q0 + ty * 4 + i;
+    if (row >= Sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    T* orow = out + (((size_t)b * S + qpos) * H + h) * D;
+    T* orow = out + (((size_t)b * Sq + row) * H + h) * D;
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
       orow[tx + 16 * j] = from_float<T>(o[i][j] * inv);
@@ -621,38 +640,37 @@ prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int H, int KV, int causal, int window, int prefix_len,
+           int Sq, int Skv, int H, int KV, const int* q_offset,
+           const int* kv_len, int causal, int window, int prefix_len,
            float scale, float softcap, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   static size_t allowed[kMaxDevices] = {};
   cudaError_t err = allow_smem(
       reinterpret_cast<const void*>(prefill_kernel<D>), smem, allowed);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
+  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   prefill_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), S, H, KV, causal,
-      window, prefix_len, scale, softcap);
+      static_cast<const float*>(v), static_cast<float*>(out), Sq, Skv, H, KV,
+      q_offset, kv_len, causal, window, prefix_len, scale, softcap);
   return (int)cudaGetLastError();
 }
 
 }  // namespace fp32
 
 // one instantiation per head dim, for either route's launcher
+#define REPRO_PREFILL_CASE(NS, DIM)                                         \
+  case DIM:                                                                 \
+    return NS::launch<DIM>(q, k, v, out, B, Sq, Skv, H, KV, q_offset,       \
+                           kv_len, causal, window, prefix_len, scale,       \
+                           softcap, st);
 #define REPRO_PREFILL_DISPATCH(NS)                                          \
   switch (D) {                                                              \
-    case 16: return NS::launch<16>(q, k, v, out, B, S, H, KV, causal,       \
-                                   window, prefix_len, scale, softcap, st); \
-    case 32: return NS::launch<32>(q, k, v, out, B, S, H, KV, causal,       \
-                                   window, prefix_len, scale, softcap, st); \
-    case 64: return NS::launch<64>(q, k, v, out, B, S, H, KV, causal,       \
-                                   window, prefix_len, scale, softcap, st); \
-    case 128: return NS::launch<128>(q, k, v, out, B, S, H, KV, causal,     \
-                                     window, prefix_len, scale, softcap,    \
-                                     st);                                   \
-    case 256: return NS::launch<256>(q, k, v, out, B, S, H, KV, causal,     \
-                                     window, prefix_len, scale, softcap,    \
-                                     st);                                   \
+    REPRO_PREFILL_CASE(NS, 16)                                              \
+    REPRO_PREFILL_CASE(NS, 32)                                              \
+    REPRO_PREFILL_CASE(NS, 64)                                              \
+    REPRO_PREFILL_CASE(NS, 128)                                             \
+    REPRO_PREFILL_CASE(NS, 256)                                             \
     default: return (int)cudaErrorInvalidValue;                             \
   }
 
@@ -661,14 +679,20 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 // Plain C entry point (bound with ctypes).  Pointers are device pointers
 // on CUDA device `device`.  bf16 launches the tensor-core kernel, f32 the
-// FP32-pipe kernel.  window <= 0 and prefix_len < 0 mean "none"; softcap
-// <= 0 means no softcap.  Returns the cudaError_t of the launch.
+// FP32-pipe kernel.  q_offset and kv_len are null or (B,) int32: the
+// position of each batch row's first query and its number of keys
+// (clamped to Skv); null means 0 and Skv.  window <= 0 and prefix_len < 0
+// mean "none"; softcap <= 0 means no softcap.  Returns the cudaError_t of
+// the launch.
 extern "C" int prefill_attention_launch(int device, int dtype, const void* q,
                                         const void* k, const void* v,
-                                        void* out, int B, int S, int H,
-                                        int KV, int D, int causal, int window,
-                                        int prefix_len, float scale,
-                                        float softcap, void* stream) {
+                                        void* out, int B, int Sq, int Skv,
+                                        int H, int KV, int D,
+                                        const int* q_offset,
+                                        const int* kv_len, int causal,
+                                        int window, int prefix_len,
+                                        float scale, float softcap,
+                                        void* stream) {
   using namespace repro_torch;
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;

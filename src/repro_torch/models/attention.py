@@ -6,7 +6,11 @@ The reference's ``models/attention``, with its names and signatures:
   loop; causal/local blocks slice the KV range they can attend to.  With
   ``kernel_impl="pallas"`` a whole-prompt prefill runs the prefill
   attention kernel instead (B2, ``kernels.prefill_attention``), as the
-  reference's does.
+  reference's does.  A continuation chunk over a plain cache in its own
+  dtype runs B2 with a query offset and a key length whatever
+  ``kernel_impl`` says: it
+  computes the reference's blockwise chunk without its score tensor over
+  the whole cache (:func:`attention_prefill`).
 * Decode (Sq == 1) runs the decode attention kernel (B1,
   ``kernels.decode_attention``) on every call: it computes the
   reference's decode function, so on the CPU its plain version is this
@@ -37,6 +41,7 @@ import torch
 from ..compat import resolve_device
 from ..kernels.decode_attention import ops as dec_ops
 from ..kernels.prefill_attention import ops as pf_ops
+from ..telemetry import counters
 from .config import AttentionConfig
 from .layers import apply_rope, rope_table, softcap
 from .params import PDef
@@ -297,19 +302,45 @@ def _project_qkv(cfg: AttentionConfig, p, x):
     return q, k, v
 
 
+def _chunk_on_b2(cache, q, window, prefix_len, kv_len) -> bool:
+    """Whether a continuation chunk can run through B2: over a plain
+    cache, where key slot i holds position i for every slot the chunk
+    attends to, in the queries' dtype.  Not over a ring (a local layer's
+    ``window``, or a chunk ending past the cache, as the host's
+    ``kv_len`` says), nor over int8 K/V, nor under a prefix-LM mask,
+    whose chunk rows are not consecutive positions (the prefix is
+    prepended to every chunk), nor over a cache in another dtype than
+    the queries', where the blockwise path rounds the softmax weights to
+    the cache's dtype before P.V, as the reference does, and B2, which
+    takes one dtype, would not."""
+    return ("k_s" not in cache and window is None and prefix_len is None
+            and kv_len <= cache["k"].shape[1]
+            and q.dtype == cache["k"].dtype)
+
+
 def attention_prefill(cfg: AttentionConfig, p, x, positions, *, local: bool,
                       cache=None, prefix_len=None, kernel_impl: str = "xla",
-                      continuation: bool = False):
+                      continuation: bool = False, kv_len=None):
     """Full-sequence attention; optionally writes the cache (in place).
 
     positions: (B, S) absolute positions.  With ``continuation=True`` the
     chunk is first merged into the cache and queries attend over the whole
     cached context (chunked-prefill semantics; assumes batch rows share the
-    chunk layout, which holds for the engine's one-request chunks).  That
-    path is always the blockwise one: B2 takes no cache offset.  Otherwise
-    ``kernel_impl="pallas"`` runs B2 over the chunk's own keys and
-    ``"xla"`` (the default) :func:`blockwise_attention`.  Returns
-    (out, new_cache).
+    chunk layout and its positions are consecutive, which holds for the
+    engine's one-request chunks).  Such a chunk needs ``kv_len``, a host
+    int past every position of the chunk (the engine's chunk end).  Over
+    a plain cache that it ends inside, the chunk runs through B2 with
+    ``q_offset`` = its first position and ``kv_len`` = its last
+    position + 1, both on the device: B2 masks by slot index as the
+    blockwise path masks by the slots' positions, which are equal there
+    (:func:`_chunk_on_b2`), and reads no key past the chunk's end.  Ring,
+    int8 and prefix-LM caches, caches in another dtype than the queries',
+    and chunks past the cache's end run :func:`blockwise_attention` over
+    the whole cache.  While the profiler
+    runs, each chunk counts by route in ``telemetry.counters``.  Without
+    ``continuation``, ``kernel_impl="pallas"`` runs B2 over the chunk's
+    own keys and ``"xla"`` (the default) :func:`blockwise_attention`.
+    Returns (out, new_cache).
     """
     q, k, v = _project_qkv(cfg, p, x)
     if cfg.rope:
@@ -323,16 +354,34 @@ def attention_prefill(cfg: AttentionConfig, p, x, positions, *, local: bool,
     if continuation:
         if new_cache is None:
             raise ValueError("continuation needs a cache")
-        kk, vv = cache_kv_arrays(new_cache, v.dtype)
-        S_cache = kk.shape[1]
-        kv_len = torch.clamp(positions[:, -1] + 1, max=S_cache)
-        out = blockwise_attention(
-            q, kk, vv,
-            q_positions=positions[0] if positions.dim() > 1 else positions,
-            k_positions=new_cache["pos"][0],
-            causal=cfg.causal, window=window, prefix_len=prefix_len,
-            kv_len=kv_len, attn_softcap=cfg.attn_softcap,
-        )
+        if kv_len is None:
+            raise ValueError("a continuation chunk needs kv_len, a host int "
+                             "past its last position")
+        S_cache = new_cache["k"].shape[1]
+        # never past the host's kv_len: B2 is given the slots below it
+        ends = torch.clamp(positions[:, -1] + 1, max=min(S_cache, kv_len))
+        b2 = _chunk_on_b2(new_cache, q, window, prefix_len, kv_len)
+        if counters.on():
+            counters.chunk_attention(b2)
+        if b2:
+            # B2 reads no slot past kv_len: it gets the cache up to there
+            # (a view at batch 1, the engine's chunk)
+            kk, vv = (new_cache[n][:, :kv_len].contiguous()
+                      for n in ("k", "v"))
+            out = pf_ops.prefill_attention(
+                q.contiguous(), kk, vv, causal=cfg.causal,
+                attn_softcap=cfg.attn_softcap, q_offset=positions[:, 0],
+                kv_len=ends)
+        else:
+            kk, vv = cache_kv_arrays(new_cache, v.dtype)
+            out = blockwise_attention(
+                q, kk, vv,
+                q_positions=positions[0] if positions.dim() > 1
+                else positions,
+                k_positions=new_cache["pos"][0],
+                causal=cfg.causal, window=window, prefix_len=prefix_len,
+                kv_len=ends, attn_softcap=cfg.attn_softcap,
+            )
     elif kernel_impl == "pallas":
         out = pf_ops.prefill_attention(
             q.contiguous(), k.contiguous(), v.contiguous(), causal=cfg.causal,

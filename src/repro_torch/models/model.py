@@ -218,8 +218,8 @@ def _apply_block(cfg: ModelConfig, spec: BlockSpec, p, x, *, positions,
     """One layer. mode: "train" | "prefill" | "decode".  "train" is
     "prefill" with no cache: attention runs :func:`blockwise_attention`
     (``kernel_impl="xla"``, the reference's training default), and no
-    cache is written.  ``kv_len``: see :func:`forward_prefill`; only the
-    latent attention reads it."""
+    cache is written.  ``kv_len``: see :func:`forward_prefill`; the
+    attention and latent attention mixers read it."""
     h = _apply_norm(cfg, p["ln1"], x)
     new_cache = dict(cache) if cache is not None else None
     with span("model.mixer"):
@@ -237,7 +237,8 @@ def _apply_block(cfg: ModelConfig, spec: BlockSpec, p, x, *, positions,
                 out, nc = attention_prefill(
                     cfg.attn, p["attn"], h, positions, local=local,
                     cache=sub, prefix_len=prefix_len,
-                    kernel_impl=kernel_impl, continuation=continuation)
+                    kernel_impl=kernel_impl, continuation=continuation,
+                    kv_len=kv_len)
         elif spec.mixer == "mla":
             mla_keys = ("c_kv", "k_rope") + (
                 ("c_s", "r_s") if cache is not None and "c_s" in cache
@@ -578,9 +579,12 @@ def forward_prefill(cfg: ModelConfig, params, tokens, positions, caches, *,
     encoder's stub frame embeddings, which an encoder-decoder config
     needs.  ``kernel_impl="pallas"`` runs whole-prompt attention through
     the prefill attention kernel (B2); ``continuation=True`` attends over
-    the cached context, and ``kv_len`` (a host int past every token's
-    position) says that no key at or past it is read: the latent
-    attention's scores stop there rather than at the cache's end.  The
+    the cached context.  ``kv_len`` (a host int past every token's
+    position; the engine's chunk end) says that no key at or past it is
+    read, and an attention layer's chunk needs it: over a plain cache it
+    runs through B2 up to the chunk's end
+    (``models.attention.attention_prefill``).  The latent attention's
+    scores stop there too, and without it reach the cache's end.  The
     caller's caches stay as they were: the chunk is written into one
     copy of them.
     """

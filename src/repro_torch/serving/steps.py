@@ -54,17 +54,19 @@ def make_prefill_step(cfg: ModelConfig, *, kernel_impl: str = "xla",
     """Whole-batch prefill: (params, caches, tokens, positions, stubs).
 
     ``continuation=True`` gives chunked-prefill semantics (queries attend
-    over the cached context) -- the engine's mixed iterations use it.
+    over the cached context up to ``kv_len``, a host int past the
+    chunk's last position: ``models.model.forward_prefill``).
     ``kernel_impl="pallas"`` runs a whole-prompt prefill's attention
     through the prefill attention kernel (B2).
     """
 
     def prefill_step(params, caches, tokens, positions, *, enc_frames=None,
-                     prefix_embeds=None):
+                     prefix_embeds=None, kv_len=None):
         logits, caches = M.forward_prefill(
             cfg, params, tokens, positions, caches,
             enc_frames=enc_frames, prefix_embeds=prefix_embeds,
-            kernel_impl=kernel_impl, continuation=continuation)
+            kernel_impl=kernel_impl, continuation=continuation,
+            kv_len=kv_len)
         return caches, greedy_sample(logits)
 
     return prefill_step
@@ -112,15 +114,16 @@ def make_mixed_step(cfg: ModelConfig, chunk: int, *, inplace: bool = False):
     caches and writes through it; the decode then runs on the same caches
     and masks out the prefilling slot.  ``prefix_embeds``, as in the
     reference, is prepended to every chunk.  ``kv_len``, a host int past
-    the chunk's last position, cuts the chunk's latent attention there
-    (``models.model.forward_prefill``); the engine gives the chunk's
-    end.  ``inplace`` as in :func:`make_decode_step`.  Returns (state,
-    decode_tokens, chunk_last_logits_token).
+    the chunk's last position (the engine gives the chunk's end), is
+    required: it cuts the chunk's attention there
+    (``models.model.forward_prefill``).  ``inplace`` as in
+    :func:`make_decode_step`.  Returns (state, decode_tokens,
+    chunk_last_logits_token).
     """
     dec = make_decode_step(cfg, inplace=True)
 
     def mixed_step(params, state, p_slot, chunk_tokens, chunk_pos0, *,
-                   enc_frames=None, prefix_embeds=None, kv_len=None):
+                   kv_len, enc_frames=None, prefix_embeds=None):
         caches = state["caches"] if inplace else \
             M.clone_caches(state["caches"])
         # --- prefill chunk on the designated slot (batch of 1)

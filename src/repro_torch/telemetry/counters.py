@@ -10,13 +10,19 @@ traced step launches a few small kernels more and never waits on the card;
 the rows are a host integer.  While the profiler is off, ``apply_moe``
 checks :func:`on` once and calls nothing.  :func:`moe_totals` reads the
 totals (one copy to the host) and :func:`reset` clears them.
+
+:func:`chunk_attention` is called by ``models.attention.attention_prefill``
+for each continuation chunk, by the route it took: B2 over the cache up
+to the chunk's end, or the blockwise path over the whole cache.  Host
+integers only; :func:`chunk_totals` reads them.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["on", "moe_dispatch", "moe_totals", "reset"]
+__all__ = ["on", "moe_dispatch", "moe_totals", "chunk_attention",
+           "chunk_totals", "reset"]
 
 on = torch.autograd._profiler_enabled
 
@@ -29,6 +35,7 @@ class _MoE:
 
 
 _MOE = _MoE()
+_CHUNK = {"b2": 0, "blockwise": 0}
 
 
 def moe_dispatch(kept, routed, rows: int):
@@ -52,5 +59,16 @@ def moe_totals():
             "rows": _MOE.rows}
 
 
+def chunk_attention(b2: bool):
+    """Add one continuation chunk's attention call, through B2 or not."""
+    _CHUNK["b2" if b2 else "blockwise"] += 1
+
+
+def chunk_totals():
+    """{"b2", "blockwise"} calls since the last :func:`reset`."""
+    return dict(_CHUNK)
+
+
 def reset():
     _MOE.dev, _MOE.rows, _MOE.calls = None, 0, 0
+    _CHUNK.update(b2=0, blockwise=0)

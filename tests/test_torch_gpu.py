@@ -345,7 +345,8 @@ def _card_and_cpu(cfg, steps, kernel_impl):
                                          device=dev))[None].expand(2, -1)
                 lg, caches = M.forward_prefill(
                     cfg, p, t, pos, caches, continuation=cont,
-                    kernel_impl=kernel_impl, **kw)
+                    kernel_impl=kernel_impl,
+                    kv_len=p0 + t.shape[1] if cont else None, **kw)
             logits.append(lg.cpu())
         out[dev] = logits
     return out["cpu"], out["cuda"]
@@ -357,13 +358,17 @@ def _card_and_cpu(cfg, steps, kernel_impl):
                                   "grok-1-314b"])
 def test_attention_models_on_the_card_match_the_cpu(cuda, arch):
     """Past the reduced window (32): the local rings wrap.  The card runs
-    B2 for the whole prefill (paligemma's with its prefix mask) and B1
-    for every decode; deepseek-v3's MLA and MoE run no kernel."""
+    B2 for the whole prefill (paligemma's with its prefix mask) and for
+    each continuation chunk of a global layer over its plain cache (not
+    under a prefix-LM mask), and B1 for every decode; deepseek-v3's MLA
+    and MoE run no kernel."""
     cfg = get_config(arch, reduced=True)
     n1, n2 = decode_attention.launches, prefill_attention.launches
     cpu, card = _card_and_cpu(cfg, 8, "pallas")
+    chunk_b2 = 0 if cfg.vision is not None else sum(
+        s.mixer == "attn" for s in cfg.block_specs())
     assert decode_attention.launches - n1 == 8 * _n_attn(cfg)
-    assert prefill_attention.launches - n2 == _n_attn(cfg)
+    assert prefill_attention.launches - n2 == _n_attn(cfg) + 2 * chunk_b2
     for a, b in zip(cpu, card):
         torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
 
@@ -414,6 +419,74 @@ def test_prefill_kernel_matches_plain_at_a10_shapes(cuda, dtype, B, S, H, KV,
     assert getattr(prefill_attention, route) == n + 1
     _close(out, prefill_attention_plain(q, k, v, prefix_len=prefix_len),
            dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("off", [0, 1536, 5632, 7680])
+def test_prefill_kernel_takes_a_chunk_over_a_slot_of_the_cache(cuda, dtype,
+                                                               off):
+    """grok-1's mixed-step chunk: 512 queries at positions off .. off + 511
+    over slot 3's view of an (8, 8192, 8, 128) cache, softcap 30; keys
+    past the chunk's end hold NaN, which must not reach it."""
+    C, H, KV, D = 512, 48, 8, 128
+    q, k, v = _randn(cuda, dtype, (1, C, H, D), (8, 8192, KV, D),
+                     (8, 8192, KV, D))
+    k[3, off + C:], v[3, off + C:] = float("nan"), float("nan")
+    ks, vs = k[3:4], v[3:4]
+    kw = dict(attn_softcap=30.0,
+              q_offset=torch.tensor([off], dtype=torch.int32, device=cuda),
+              kv_len=torch.tensor([off + C], dtype=torch.int32, device=cuda))
+    route = "launches_tc" if dtype == "bfloat16" else "launches_fp32"
+    n = getattr(prefill_attention, route)
+    out = prefill_attention(q, ks, vs, **kw)
+    assert getattr(prefill_attention, route) == n + 1
+    assert not out.isnan().any()
+    _close(out, prefill_attention_plain(q, ks[:, :off + C], vs[:, :off + C],
+                                        **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_chunk_attention_runs_b2_with_no_host_sync(cuda, dtype):
+    """A continuation chunk over a plain cache, as the engine's mixed step
+    gives it: B2 launches once and nothing waits on the card.  Its output
+    is the blockwise path's over the same cache (reached by a ``kv_len``
+    counted past the cache's end, which only a ring can hold) to one
+    rounding of the output in bf16 (it rounds P to bf16; B2 does not)."""
+    from repro_torch.models import attention as A
+    from repro_torch.models.config import AttentionConfig
+    from repro_torch.models.params import init_params
+
+    cfg = AttentionConfig(n_heads=48, n_kv_heads=8, head_dim=128,
+                          attn_softcap=30.0)
+    d, dt = 256, DTYPES[dtype]
+    p = init_params(A.attn_defs(cfg, d), torch.Generator().manual_seed(0),
+                    dtype=dt, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x0, x1 = (torch.randn(1, n, d, generator=g, device=cuda).to(dt)
+              for n in (1536, 512))
+    pos = torch.arange(2048, dtype=torch.int32, device=cuda)[None]
+
+    def chunk(kv_len, sync_debug):
+        cache = A.init_kv_cache(1, 8192, 8, 128, dt, device=cuda)
+        _, cache = A.attention_prefill(cfg, p, x0, pos[:, :1536],
+                                       cache=cache, local=False)
+        torch.cuda.synchronize()
+        n = prefill_attention.launches
+        torch.cuda.set_sync_debug_mode(sync_debug)
+        try:
+            out = A.attention_prefill(cfg, p, x1, pos[:, 1536:], cache=cache,
+                                      local=False, continuation=True,
+                                      kv_len=kv_len)[0]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        return out, prefill_attention.launches - n
+
+    got, n_b2 = chunk(2048, "error")
+    want, n_blockwise = chunk(8192 + 512, "default")
+    assert (n_b2, n_blockwise) == (1, 0)
+    rel = 3e-5 if dtype == "float32" else 2.0 ** -6
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=rel * float(want.abs().max()))
 
 
 @pytest.mark.parametrize("arch", ["grok-1-314b", "deepseek-v3-671b"])
@@ -1083,11 +1156,11 @@ def test_engine_mixed_step_writes_its_caches_in_place(cuda):
     args = (eng.params, eng.state, slot,
             torch.from_numpy(toks[:C]).to(cuda),
             torch.zeros((1, 1), dtype=torch.int32, device=cuda))
-    want = make_mixed_step(cfg, C)(*args)
+    want = make_mixed_step(cfg, C)(*args, kv_len=C)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    got = eng._mixed(*args)
+    got = eng._mixed(*args, kv_len=C)
     torch.cuda.synchronize()
     rise = torch.cuda.max_memory_allocated() - base
     assert rise < tree_nbytes(eng.state["caches"]), rise

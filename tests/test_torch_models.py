@@ -22,6 +22,7 @@ Tolerances, relative to the largest magnitude:
   C-ref5: the scanned form refuses the residual's change of dtype).
 """
 
+import dataclasses
 from functools import lru_cache, partial
 
 import jax
@@ -51,11 +52,15 @@ def _close(got, want, rel):
     np.testing.assert_allclose(got, want, rtol=rel, atol=rel * scale)
 
 
-def _model(arch, param_dtype="float32", **over):
-    ref_cfg = ref_get_config(arch, reduced=True).replace(
-        param_dtype=param_dtype, **over)
-    cfg = get_config(arch, reduced=True).replace(param_dtype=param_dtype,
-                                                 **over)
+def _model(arch, param_dtype="float32", attn=None, **over):
+    """``attn``: fields of the attention config to change, in both."""
+    cfgs = []
+    for get in (ref_get_config, get_config):
+        c = get(arch, reduced=True)
+        if attn:
+            c = c.replace(attn=dataclasses.replace(c.attn, **attn))
+        cfgs.append(c.replace(param_dtype=param_dtype, **over))
+    ref_cfg, cfg = cfgs
     rp = jax.tree.map(np.asarray, RM.init_model(ref_cfg,
                                                 jax.random.PRNGKey(1)))
     return ref_cfg, cfg, rp, params_from_numpy(rp, "cpu")
@@ -177,7 +182,8 @@ def test_chunked_continuation_matches_reference(arch):
     pair = _Pair(arch)
     _close(*pair.prefill(40), REL["float32"])
     for pos0 in (40, 56):
-        _close(*pair.prefill(16, pos0, continuation=True), REL["float32"])
+        _close(*pair.prefill(16, pos0, kv_len=pos0 + 16, continuation=True),
+               REL["float32"])
     for i in range(2):
         _close(*pair.decode(72 + i), REL["float32"])
     _caches_close(pair.tc, pair.rc, REL["float32"])
@@ -201,7 +207,8 @@ def _c_ref5_example(unroll):
     decode step, the engine's two iterations."""
     pair = _Pair("qwen2-0.5b", "bfloat16", unroll=unroll)
     pair.prefill(16)
-    _close(*pair.prefill(16, 16, continuation=True), REL["bfloat16"])
+    _close(*pair.prefill(16, 16, kv_len=32, continuation=True),
+           REL["bfloat16"])
     _close(*pair.decode(32), REL["bfloat16"])
 
 
@@ -251,6 +258,44 @@ def test_mla_chunks_cut_at_kv_len_match_reference(over):
     _caches_close(pair.tc, pair.rc, REL["float32"])
 
 
+# reduced configs whose attention differs from the reduced arch's: grok-1's
+# softcap 30 and 6 query heads to a KV head, as the full model has them
+ATTN_CHUNKS = {"grok-1-314b": {"n_heads": 12, "n_kv_heads": 2,
+                               "attn_softcap": 30.0},
+               "qwen2-0.5b": None}
+
+
+@pytest.mark.parametrize("arch", list(ATTN_CHUNKS))
+def test_attention_chunks_cut_at_kv_len_match_reference(arch, monkeypatch):
+    """Continuation chunks of attention models given ``kv_len``, the
+    chunk's end as the engine gives it: over the plain cache each chunk
+    runs through B2 (its plain version here) over the cache's first
+    ``kv_len`` slots of 96, and the logits and caches match the
+    reference's blockwise chunks over the whole cache."""
+    from repro_torch.models import attention as TA
+
+    seen = []
+    b2 = TA.pf_ops.prefill_attention
+
+    def spy(q, k, v, **kw):
+        seen.append((int(kw["q_offset"][0]), k.shape[1]))
+        return b2(q, k, v, **kw)
+
+    monkeypatch.setattr(TA.pf_ops, "prefill_attention", spy)
+    pair = _Pair(arch, attn=ATTN_CHUNKS[arch])
+    _close(*pair.prefill(40), REL["float32"])
+    chunks = ((40, 16), (56, 16), (72, 8))
+    for pos0, n in chunks:
+        _close(*pair.prefill(n, pos0, kv_len=pos0 + n, continuation=True),
+               REL["float32"])
+    layers = pair.cfg.n_layers
+    assert seen == [(pos0, pos0 + n) for pos0, n in chunks for _ in
+                    range(layers)]
+    for i in range(2):
+        _close(*pair.decode(80 + i), REL["float32"])
+    _caches_close(pair.tc, pair.rc, REL["float32"])
+
+
 def test_mla_chunk_reads_no_key_past_kv_len():
     """What lies in the latent cache at or past ``kv_len`` does not reach
     the chunk: NaN written there leaves its logits as a clean cache gives
@@ -291,7 +336,8 @@ def test_whisper_bf16_caches_keep_cross_attention_kv_in_f32():
     pair = _Pair("whisper-base", cache_dtype="bfloat16")
     _close(*pair.prefill(40), REL["float32"])
     for pos0 in (40, 56):
-        _close(*pair.prefill(16, pos0, continuation=True), REL["float32"])
+        _close(*pair.prefill(16, pos0, kv_len=pos0 + 16, continuation=True),
+               REL["float32"])
     leaves = pair.tc[0]["b0"]
     assert leaves["k"].dtype == torch.bfloat16
     assert leaves["xk"].dtype == leaves["xv"].dtype == torch.float32
@@ -321,7 +367,8 @@ def test_forward_leaves_its_input_caches_as_they_were(arch):
                    for k, c in seg.items()} for seg in caches]
         if call == "prefill":
             _, out = TM.forward_prefill(cfg, params, toks[:, :16], pos[:, :16]
-                                        + 40, caches, continuation=True, **kw)
+                                        + 40, caches, continuation=True,
+                                        kv_len=56, **kw)
         else:
             _, out = TM.forward_decode(cfg, params, toks[:, :1],
                                        torch.full((B,), 40, dtype=torch.int32),

@@ -189,9 +189,12 @@ def test_mixed_step_with_stubs_matches_reference(arch):
         length = np.full((B,), S, np.int32)
         state = dict(st, caches=caches, length=to(length), last_token=nxt,
                      active=to(np.array([True, False, True])))
+        # the chunk's end, which the port's step takes and the reference's
+        # does not
+        end = {"kv_len": C} if pkg == "port" else {}
         res = mods.make_mixed_step(c, C)(
             params, state, 1, to(chunk), to(np.zeros((1, 1), np.int32)),
-            **{k: to(v) for k, v in st_1.items()})
+            **{k: to(v) for k, v in st_1.items()}, **end)
         out[pkg] = (nxt, res)
     (w_nxt, (w_state, w_dec, w_tok)), (g_nxt, (g_state, g_dec, g_tok)) = \
         out["ref"], out["port"]

@@ -73,7 +73,8 @@ def test_mixed_step_prefill_isolation():
     s_solo = dec(params, setup())[0]
     before = setup()
     s_mixed, dec_tokens, _ = mixed(params, before, 3, chunk,
-                                   torch.zeros((1, 1), dtype=torch.int32))
+                                   torch.zeros((1, 1), dtype=torch.int32),
+                                   kv_len=C)
     # decode slots 0 and 1 advanced identically in both modes
     assert torch.equal(s_solo["last_token"][:2], s_mixed["last_token"][:2])
     assert torch.equal(s_solo["length"][:2], s_mixed["length"][:2])
@@ -211,7 +212,8 @@ def test_attention_mixed_step_prefill_isolation(arch):
     s_solo = make_decode_step(cfg)(params, setup())[0]
     before = setup()
     s_mixed, _, _ = make_mixed_step(cfg, C)(
-        params, before, 3, chunk, torch.zeros((1, 1), dtype=torch.int32))
+        params, before, 3, chunk, torch.zeros((1, 1), dtype=torch.int32),
+        kv_len=C)
     assert torch.equal(s_solo["last_token"][:2], s_mixed["last_token"][:2])
     assert torch.equal(s_solo["length"][:2], s_mixed["length"][:2])
     for solo, mix, old in zip(_leaves(s_solo["caches"]),

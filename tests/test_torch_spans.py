@@ -158,7 +158,7 @@ def test_the_bytes_attrs_are_the_copied_trees():
     with spans.recording():
         steps.make_mixed_step(eng.cfg, C)(
             eng.params, state, 3, torch.zeros(C, dtype=torch.int32),
-            torch.zeros((1, 1), dtype=torch.int32))
+            torch.zeros((1, 1), dtype=torch.int32), kv_len=C)
         steps.make_decode_step(eng.cfg)(eng.params, state)
     assert by(spans.records(), "model.cache_clone") == [full, full]
 
