@@ -221,17 +221,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    decode_32k over baseline, kv_heads and kv_int8.  (b) qwen2-0.5b at its
    published width, bf16 params and full random bf16 caches, through
    ``make_decode_step(masked=False)`` at decode_32k's S=32768, at the
-   largest batch of 128, 64, 32, 16, 8 whose state, one step and its
-   ``masked=True`` twin fit: B1 once per layer per step, and the new
-   state equal to the twin's bit for bit; prints the step's device time
-   beside the dry run's memory term for the same shapes at the card's
-   table, and B1 at that shape against its plain version (a row of the
-   kernels line's B1).  (c) the six ``examples/torch_*.py`` at their
-   reference defaults: the host's three (quickstart, elastic_failover,
-   online_adaptive) in the pool beside (a), the card's three in this
-   process; ``ctmc_scan`` must launch in ``torch_ctmc_jax_demo`` and B1
-   in ``torch_serve_cluster``.  (b)'s and (c)'s B1 launches join the
-   kernels line's.
+   largest batch of 128, 64, 32, 16, 8 whose state and the copy of it
+   that its ``masked=True`` twin writes fit: B1 once per layer per step,
+   and the new state equal to the twin's bit for bit; prints the step's
+   device time beside the dry run's memory term for the same shapes at
+   the card's table, and B1 at that shape against its plain version (a
+   row of the kernels line's B1).  (c) the six ``examples/torch_*.py``
+   at their reference defaults: the host's three (quickstart,
+   elastic_failover, online_adaptive) in the pool beside (a), the card's
+   three in this process; ``ctmc_scan`` must launch in
+   ``torch_ctmc_jax_demo`` and B1 in ``torch_serve_cluster``.  (b)'s and
+   (c)'s B1 launches join the kernels line's.
 
 It then prints the per-kernel JSON line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -1207,8 +1207,8 @@ def _whole_prompt(torch, cfg, params, B, S, steps, *, stubs=None,
     counts, routes = _counts(), _b1_routes() or "none"
     by_plan = dict(decode_attention.routes)
     # the card's busy time a decode: the last decode twice more under the
-    # profiler (a decode leaves its input caches as they were), the sum of
-    # its device events over the calls
+    # profiler (it writes the same position of the same caches again), the
+    # sum of its device events over the calls
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(2):
@@ -1348,20 +1348,6 @@ def run_loop(backend: str):
             raise AssertionError(f"{backend} loop, {label} model: revenue "
                                  f"{revenue[label]}, {m.completions} done")
     return art, revenue
-
-
-def _wall_ms(torch, fn, reps=5):
-    """Median host wall of ``fn`` between two synchronizes, in ms: for a
-    wrapper that reads a count back from the card between its launches,
-    which the spin-queued timer cannot take."""
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    return 1e3 * sorted(times)[len(times) // 2]
 
 
 def _ctmc_bound(raws, steps):
@@ -3064,9 +3050,8 @@ def _decode_32k(torch, smi: str) -> tuple:
     """Phase 12 (b): qwen2-0.5b at its published width, bf16 params and
     caches, through ``make_decode_step(masked=False)`` at decode_32k's
     S=32768 over full random caches, at the largest batch of
-    ``DECODE_32K_BATCHES`` whose state, the ``masked=True`` twin's
-    output and one unmasked step's output fit.  Returns (B1 row,
-    launches)."""
+    ``DECODE_32K_BATCHES`` whose state and the copy of it that the
+    ``masked=True`` twin writes fit.  Returns (B1 row, launches)."""
     import gc
 
     from repro_torch.compat import make_mesh
@@ -3075,7 +3060,7 @@ def _decode_32k(torch, smi: str) -> tuple:
     from repro_torch.launch.dryrun import analyze_cell
     from repro_torch.launch.roofline import hw_constants
     from repro_torch.models import model as M
-    from repro_torch.models.params import tree_flatten
+    from repro_torch.models.params import tree_flatten, tree_map
     from repro_torch.serving.steps import make_decode_step
     from repro_torch.telemetry.timing import timeit_median_cuda
 
@@ -3110,9 +3095,9 @@ def _decode_32k(torch, smi: str) -> tuple:
                      "active": torch.ones(B, dtype=torch.bool,
                                           device="cuda")}
             _zero_counts()
-            # the twin first: its merge holds a third copy of the caches
-            # for a moment, before the unmasked step's output exists
-            twin = masked(params, state)
+            # the steps write the caches they are given: the twin writes
+            # a copy of the state, the unmasked step the state itself
+            twin = masked(params, tree_map(torch.clone, state))
             torch.cuda.synchronize()
             out = unmasked(params, state)
             torch.cuda.synchronize()
@@ -3146,7 +3131,7 @@ def _decode_32k(torch, smi: str) -> tuple:
                for x in leaf):
         raise AssertionError("phase 12 (b): non-finite caches")
     print(f"[dry] (b) {ARCH} decode B={B} S={S} (the largest of "
-          f"{DECODE_32K_BATCHES} whose state, masked twin and step fit), "
+          f"{DECODE_32K_BATCHES} whose state and the twin's copy fit), "
           f"peak allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} "
           f"GB: B1 {launches} launches = 2 steps x {n_attn} layers "
           f"({_b1_routes()}); masked=False's state equals masked=True's "

@@ -18,10 +18,7 @@ The reference's ``models/attention``, with its names and signatures:
 * Sliding-window ("local") layers keep a **ring buffer** cache of size
   ``window``; ``quant=True`` caches hold int8 K/V with f16 scales.
 * The cache writers write into the cache they are given, where the
-  reference's return a new one: ``models.model``'s pure entry points
-  hand them one copy of the caches, so those still leave their inputs as
-  they were; its ``_inplace`` entry points, which the serving engine
-  runs, hand them the caches themselves.  No layer copies its cache.
+  reference's return a new one.  No layer copies its cache.
 
 ``torch.einsum`` refuses mixed dtypes where ``jnp.einsum`` promotes, so
 each contraction promotes its operands as JAX would (``_einsum``): bf16

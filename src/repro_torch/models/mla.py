@@ -20,8 +20,7 @@ contraction), the probabilities are cast back to the activations' dtype,
 and every other contraction promotes its operands as ``jnp.einsum`` does
 (bf16 activations against an f32 cache read in f32).  As in
 ``models.attention``, the cache writers write into the cache they are
-given: one copy from ``models.model``'s pure entry points, the caches
-themselves from its ``_inplace`` ones.
+given.
 """
 
 from __future__ import annotations

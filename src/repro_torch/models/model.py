@@ -16,9 +16,9 @@ Three entry points, matching the serving/training split of the paper:
   returns the last-position logits.
 * :func:`forward_decode` -- one-token decode step over the caches.
 
-The two serving entry points write into one copy of the caches they are
-given; their ``_inplace`` forms, which the serving engine runs on the
-caches it owns, write the caches where they lie.
+The two serving entry points write the caches they are given where those
+lie.  The reference's are pure; a caller who wants its caches kept
+copies them first.
 
 Every mixer (``attn``/``attn_local``, ``mla``, ``rec``, ``ssm``) and
 channel (``mlp``, ``moe``) runs.  Encoder-decoder (whisper) runs its
@@ -48,14 +48,13 @@ from .config import BlockSpec, ModelConfig, segment_layers
 from .layers import apply_mlp, layernorm, mlp_defs, rmsnorm, softcap
 from .mla import init_mla_cache, mla_decode, mla_defs, mla_prefill
 from .moe import apply_moe, moe_defs
-from .params import PDef, _walk, init_params, tree_map, tree_nbytes
+from .params import PDef, _walk, init_params, tree_map
 from .rglru import init_rglru_cache, rglru_decode, rglru_defs, rglru_forward
 from .ssm import init_ssm_cache, ssm_decode, ssm_defs, ssm_forward
 
 __all__ = ["model_defs", "param_count", "active_param_count", "init_cache",
            "forward_train", "forward_prefill", "forward_decode",
-           "forward_prefill_inplace", "forward_decode_inplace",
-           "clone_caches", "loss_fn", "encoder_forward", "init_model"]
+           "loss_fn", "encoder_forward", "init_model"]
 
 
 # ------------------------------------------------------------------ norms
@@ -534,22 +533,28 @@ def loss_fn(cfg: ModelConfig, params, tokens, labels, *, prefix_embeds=None,
     return loss
 
 
-def clone_caches(caches):
-    """One contiguous copy of a cache tree, for the entry points that
-    leave their caller's caches as they were."""
-    with span("model.cache_clone", bytes=lambda: tree_nbytes(caches)):
-        return tree_map(
-            lambda a: a.clone(memory_format=torch.contiguous_format), caches)
-
-
-def forward_prefill_inplace(cfg: ModelConfig, params, tokens, positions,
-                            caches, *, prefix_embeds=None, enc_frames=None,
-                            kernel_impl="xla", continuation=False,
-                            kv_len=None):
-    """:func:`forward_prefill` writing ``caches`` where they lie: returns
+def forward_prefill(cfg: ModelConfig, params, tokens, positions, caches, *,
+                    prefix_embeds=None, enc_frames=None, kernel_impl="xla",
+                    continuation=False, kv_len=None):
+    """Prefill a chunk into ``caches`` where they lie; returns
     (last-position logits, caches), the caches the same tensors but for a
     leaf the chunk gives a dtype of its own (the cross-attention K/V in
-    the activations' dtype), which comes back new."""
+    the activations' dtype), which comes back new.
+
+    positions: (B, S) absolute positions of ``tokens`` (supports chunked /
+    continued prefill).  ``prefix_embeds`` (B, P, d): stub patch
+    embeddings prepended to the chunk, attended bidirectionally, with the
+    tokens' positions shifted by P.  ``enc_frames`` (B, n_frames, d): the
+    encoder's stub frame embeddings, which an encoder-decoder config
+    needs.  ``kernel_impl="pallas"`` runs whole-prompt attention through
+    the prefill attention kernel (B2); ``continuation=True`` attends over
+    the cached context.  ``kv_len`` (a host int past every token's
+    position; the engine's chunk end) says that no key at or past it is
+    read, and an attention layer's chunk needs it: over a plain cache it
+    runs through B2 up to the chunk's end
+    (``models.attention.attention_prefill``).  The latent attention's
+    scores stop there too, and without it reach the cache's end.
+    """
     enc_out = _encode(cfg, params, enc_frames, "prefill")
     x, prefix_len = _embed(cfg, params, tokens, positions, prefix_embeds)
     if prefix_len:
@@ -567,38 +572,10 @@ def forward_prefill_inplace(cfg: ModelConfig, params, tokens, positions,
     return _logits(cfg, params, x[:, -1:]), caches
 
 
-def forward_prefill(cfg: ModelConfig, params, tokens, positions, caches, *,
-                    prefix_embeds=None, enc_frames=None, kernel_impl="xla",
-                    continuation=False, kv_len=None):
-    """Prefill a chunk; returns (last-position logits, new caches).
-
-    positions: (B, S) absolute positions of ``tokens`` (supports chunked /
-    continued prefill).  ``prefix_embeds`` (B, P, d): stub patch
-    embeddings prepended to the chunk, attended bidirectionally, with the
-    tokens' positions shifted by P.  ``enc_frames`` (B, n_frames, d): the
-    encoder's stub frame embeddings, which an encoder-decoder config
-    needs.  ``kernel_impl="pallas"`` runs whole-prompt attention through
-    the prefill attention kernel (B2); ``continuation=True`` attends over
-    the cached context.  ``kv_len`` (a host int past every token's
-    position; the engine's chunk end) says that no key at or past it is
-    read, and an attention layer's chunk needs it: over a plain cache it
-    runs through B2 up to the chunk's end
-    (``models.attention.attention_prefill``).  The latent attention's
-    scores stop there too, and without it reach the cache's end.  The
-    caller's caches stay as they were: the chunk is written into one
-    copy of them.
-    """
-    return forward_prefill_inplace(
-        cfg, params, tokens, positions,
-        clone_caches(caches) if caches is not None else None,
-        prefix_embeds=prefix_embeds, enc_frames=enc_frames,
-        kernel_impl=kernel_impl, continuation=continuation, kv_len=kv_len)
-
-
-def forward_decode_inplace(cfg: ModelConfig, params, tokens, positions,
-                           caches, *, active=None):
-    """:func:`forward_decode` writing ``caches`` where they lie; returns
-    (logits, caches).
+def forward_decode(cfg: ModelConfig, params, tokens, positions, caches, *,
+                   active=None):
+    """One-token decode into ``caches`` where they lie; returns (logits,
+    caches).  tokens (B, 1); positions (B,) current index.
 
     ``active`` (B,) bool: rows where it is False end with their caches as
     they were, bit for bit.  Every row still computes, and reads the
@@ -622,14 +599,6 @@ def forward_decode_inplace(cfg: ModelConfig, params, tokens, positions,
                   bytes=lambda: _at_position_nbytes(caches)):
             _put_back(kept, active, rows)
     return _logits(cfg, params, x), caches
-
-
-def forward_decode(cfg: ModelConfig, params, tokens, positions, caches):
-    """One-token decode. tokens (B, 1); positions (B,) current index.  The
-    caller's caches stay as they were: the token is written into one copy
-    of them."""
-    return forward_decode_inplace(cfg, params, tokens, positions,
-                                  clone_caches(caches))
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator,

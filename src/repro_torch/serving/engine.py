@@ -59,8 +59,8 @@ class ServerEngine:
         self.state = init_server_state(cfg, self.B, max_len, dtype,
                                        self.device)
         # the engine owns its state: its steps write the caches in place
-        self._decode = make_decode_step(cfg, inplace=True)
-        self._mixed = make_mixed_step(cfg, self.chunk, inplace=True)
+        self._decode = make_decode_step(cfg)
+        self._mixed = make_mixed_step(cfg, self.chunk)
         self.slots: list[Optional[SlotRequest]] = [None] * self.B
         # host-side prefill progress (one prefill at a time, paper Section 2)
         self.prefill: Optional[tuple[SlotRequest, np.ndarray, int]] = None

@@ -10,13 +10,12 @@ the paper's iteration taxonomy (Section 2.2):
   *fused with* one decode token for the other slots: the paper's
   mixed-mode GPU iteration.
 
-All are ``(params, state, inputs) -> (state, outputs)`` functions; by
-default they leave their inputs as they were, as the reference's pure
-functions do.  The decode and mixed steps also come in place
-(``inplace=True``), for :mod:`.engine`, which owns its state and wraps
-them with slot management: the caches are written where they lie and
-come back in the new state, beside new bookkeeping tensors.  The pure
-form is one copy of the caches in front of the same step.
+All are ``(params, state, inputs) -> (state, outputs)`` functions.  The
+reference's are pure; these write the caches they are given where those
+lie (``models.model.forward_prefill``), and return them in the new state
+beside new bookkeeping tensors.  :mod:`.engine` owns its state and wraps
+them with slot management; a caller who reads a state again after
+stepping it copies it first.
 """
 
 from __future__ import annotations
@@ -72,29 +71,24 @@ def make_prefill_step(cfg: ModelConfig, *, kernel_impl: str = "xla",
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, *, masked: bool = True,
-                     inplace: bool = False):
+def make_decode_step(cfg: ModelConfig, *, masked: bool = True):
     """One decode token for every slot (solo iteration).
 
     With ``masked=True`` (the engine path) inactive slots still *compute*
     (static shapes) but end with their caches as they were, bit for bit
     -- essential when a mixed iteration is concurrently prefilling one of
     the slots.  The blend is at the position each row writes
-    (``models.model.forward_decode_inplace``), not over the caches.  The
+    (``models.model.forward_decode``), not over the caches.  The
     dry-run traces ``masked=False`` (all slots active), the pure decode
-    iteration: the new caches are taken as computed.  ``inplace=True``
-    writes ``state``'s caches where they lie; otherwise the step writes
-    one copy of them.
+    iteration: the new caches are taken as computed.
     """
 
     def decode_step(params, state):
         with span("step.decode"):
-            caches = state["caches"] if inplace else \
-                M.clone_caches(state["caches"])
             act = state["active"]
-            logits, caches = M.forward_decode_inplace(
+            logits, caches = M.forward_decode(
                 cfg, params, state["last_token"][:, None], state["length"],
-                caches, active=act if masked else None)
+                state["caches"], active=act if masked else None)
             nxt = greedy_sample(logits)
             return {
                 "caches": caches,
@@ -106,7 +100,7 @@ def make_decode_step(cfg: ModelConfig, *, masked: bool = True,
     return decode_step
 
 
-def make_mixed_step(cfg: ModelConfig, chunk: int, *, inplace: bool = False):
+def make_mixed_step(cfg: ModelConfig, chunk: int):
     """Fused mixed iteration: prefill ``chunk`` tokens into slot ``p_slot``
     while decoding one token on every *other* active slot.
 
@@ -116,16 +110,14 @@ def make_mixed_step(cfg: ModelConfig, chunk: int, *, inplace: bool = False):
     reference, is prepended to every chunk.  ``kv_len``, a host int past
     the chunk's last position (the engine gives the chunk's end), is
     required: it cuts the chunk's attention there
-    (``models.model.forward_prefill``).  ``inplace`` as in
-    :func:`make_decode_step`.  Returns (state, decode_tokens,
+    (``models.model.forward_prefill``).  Returns (state, decode_tokens,
     chunk_last_logits_token).
     """
-    dec = make_decode_step(cfg, inplace=True)
+    dec = make_decode_step(cfg)
 
     def mixed_step(params, state, p_slot, chunk_tokens, chunk_pos0, *,
                    kv_len, enc_frames=None, prefix_embeds=None):
-        caches = state["caches"] if inplace else \
-            M.clone_caches(state["caches"])
+        caches = state["caches"]
         # --- prefill chunk on the designated slot (batch of 1)
         with span("step.chunk"):
             # cache leaves are (layer_rep, B, ...): the slot/batch dim is
@@ -133,7 +125,7 @@ def make_mixed_step(cfg: ModelConfig, chunk: int, *, inplace: bool = False):
             view = tree_map(lambda a: a[:, p_slot:p_slot + 1], caches)
             positions = chunk_pos0 + torch.arange(
                 chunk, dtype=torch.int32, device=chunk_tokens.device)[None, :]
-            logits, sub = M.forward_prefill_inplace(
+            logits, sub = M.forward_prefill(
                 cfg, params, chunk_tokens[None, :], positions, view,
                 enc_frames=enc_frames, prefix_embeds=prefix_embeds,
                 continuation=True, kv_len=kv_len)

@@ -11,22 +11,24 @@
 * :mod:`repro_torch.telemetry.timing` -- the host and CUDA timers.
 * :mod:`repro_torch.telemetry.spans` -- ``span(name, **attrs)`` around
   the phases of ``ServerEngine.step`` and of the model: ``cpu_op`` ranges
-  while ``torch.profiler`` runs, records in memory while
-  ``spans.recording()`` is on, one flag check otherwise.
+  while ``torch.profiler`` runs, one flag check otherwise.
 * :mod:`repro_torch.telemetry.counters` -- totals added up on the card
   under the same gate (the MoE's dispatch: copies kept, dropped, rows
   launched), read once after a traced window.
 
-An operator records a window of spans and writes it as a Chrome trace::
+An operator records a window of spans, with the device's kernels beside
+them, and writes it as a Chrome trace::
 
-    from repro_torch.telemetry import spans, trace
+    from torch.profiler import profile
 
-    with spans.recording():
+    with profile(record_shapes=True) as prof:
         for _ in range(100):
             engine.step()
-    trace.write_trace("steps.json", trace.span_events(spans.records()))
+    prof.export_chrome_trace("steps.json")
 
-``spans.dropped()`` counts the spans past ``spans.LIMIT`` records.
+The spans show as ``cpu_op`` events whose ``args`` hold their attrs
+(``engine.step``: ``mode``, ``decoding``, ``chunk_tokens``;
+``step.merge``: ``bytes``).
 
 ``python -m repro_torch.telemetry`` renders trajectory/SLI reports and
 validates emitted trace/manifest files.
@@ -38,10 +40,10 @@ from .manifest import (MANIFEST_SCHEMA_VERSION, append_record,
 from .probes import (PROBES, ProbeSpec, PyProbes, extract_probes,
                      hist_attainment, hist_edges, hist_percentile,
                      resolve_probe_spec)
-from .spans import recording, records, span
+from .spans import span
 from .timing import timeit_median
 from .trace import (TRACE_SCHEMA_VERSION, lifecycle_events, replan_events,
-                    span_events, trace_payload, validate_trace, write_trace)
+                    trace_payload, validate_trace, write_trace)
 
 __all__ = [
     "MANIFEST_SCHEMA_VERSION",
@@ -58,13 +60,10 @@ __all__ = [
     "lifecycle_events",
     "payload_digest",
     "read_records",
-    "recording",
-    "records",
     "replan_events",
     "resolve_probe_spec",
     "run_record",
     "span",
-    "span_events",
     "timeit_median",
     "trace_payload",
     "validate_record",

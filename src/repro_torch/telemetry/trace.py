@@ -14,12 +14,11 @@ Inputs are plain *lifecycle records*: one dict per request with
 decode emission) and ``t_last`` (last emission).  The batched engines
 (``serving/engine_jax.py``) only carry arrival/first/last, so their
 queue-wait and prefill spans merge into one ``wait+prefill`` span; the
-Python engine renders all three phases.  :func:`span_events` renders the
-port's own step and model spans (:mod:`.spans`) on a process of their
-own.  :func:`validate_trace` is the schema gate for every emitted file.
+Python engine renders all three phases.  :func:`validate_trace` is the
+schema gate for every emitted file.
 
-Apart from :func:`span_events`, a framework-free copy of the reference's
-``repro.telemetry.trace``: the same events, payloads and checks.
+A framework-free copy of the reference's ``repro.telemetry.trace``: the
+same events, payloads and checks.
 """
 
 from __future__ import annotations
@@ -33,7 +32,6 @@ __all__ = [
     "TRACE_SCHEMA_VERSION",
     "lifecycle_events",
     "replan_events",
-    "span_events",
     "trace_payload",
     "validate_trace",
     "write_trace",
@@ -43,7 +41,6 @@ TRACE_SCHEMA_VERSION = 1
 
 _PID_REQUESTS = 1
 _PID_CONTROL = 2
-_PID_SPANS = 3
 _PHASES = ("queue", "prefill", "wait+prefill", "decode")
 
 
@@ -112,18 +109,6 @@ def replan_events(replans: Iterable) -> list:
             ev["args"] = args
         events.append(ev)
     return events
-
-
-def span_events(records: Iterable) -> list:
-    """Complete events for :func:`repro_torch.telemetry.spans.records`:
-    one per closed span, on one track, ``ts`` in microseconds from the
-    first span's start and the span's attrs as ``args``."""
-    recs = [r for r in records if r[2] is not None]
-    t0 = min((r[1] for r in recs), default=0)
-    return [{"name": name, "cat": "span", "ph": "X",
-             "ts": (a - t0) / 1e3, "dur": (b - a) / 1e3, "pid": _PID_SPANS,
-             "tid": 0, **({"args": dict(attrs)} if attrs else {})}
-            for name, a, b, _, attrs in recs]
 
 
 def trace_payload(events: list, *, source: str = "repro") -> dict:

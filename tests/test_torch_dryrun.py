@@ -42,7 +42,7 @@ from repro_torch.launch import dryrun as D
 from repro_torch.launch import perf_loop, roofline
 from repro_torch.launch.hlo_analysis import collective_traffic
 from repro_torch.models import model as TM
-from repro_torch.models.params import tree_flatten
+from repro_torch.models.params import tree_flatten, tree_map
 from repro_torch.serving.steps import make_decode_step
 from test_torch_models import _caches_close, _close, _model
 
@@ -271,7 +271,9 @@ def test_decode_step_unmasked_matches_the_reference():
     tstate = {"caches": tc, "length": torch.full((B,), P, dtype=torch.int32),
               "last_token": torch.from_numpy(toks[:, -1].copy()),
               "active": torch.ones((B,), dtype=torch.bool)}
-    got, got_tok = make_decode_step(cfg, masked=False)(tp, tstate)
+    # each step writes the caches it is given: the first gets a copy
+    got, got_tok = make_decode_step(cfg, masked=False)(
+        tp, tree_map(torch.clone, tstate))
     np.testing.assert_array_equal(got_tok.numpy(), np.asarray(want_tok))
     _caches_close(got["caches"], want["caches"], 1e-5)
     for k in ("length", "last_token", "active"):

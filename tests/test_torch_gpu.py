@@ -1127,9 +1127,9 @@ def test_engine_mixed_step_writes_its_caches_in_place(cuda):
     """One mixed step of the engine (reduced grok-1: attention and MoE,
     bf16 caches, 32 slots of 8192) beside three decoding slots: the
     device's peak memory rises by less than one copy of the caches, and
-    the step's tokens and caches are the pure step's bit for bit (the
-    MoE's scatter-add over top-2 experts adds two terms onto zero, so its
-    order cannot show)."""
+    the step's tokens and caches are bit for bit those of the same step
+    run first on a copy of the state (the MoE's scatter-add over top-2
+    experts adds two terms onto zero, so its order cannot show)."""
     from repro_torch.core.types import ServicePrimitives
     from repro_torch.models.params import tree_flatten, tree_nbytes
     from repro_torch.serving.engine import ServerEngine, SlotRequest
@@ -1156,7 +1156,8 @@ def test_engine_mixed_step_writes_its_caches_in_place(cuda):
     args = (eng.params, eng.state, slot,
             torch.from_numpy(toks[:C]).to(cuda),
             torch.zeros((1, 1), dtype=torch.int32, device=cuda))
-    want = make_mixed_step(cfg, C)(*args, kv_len=C)
+    want = make_mixed_step(cfg, C)(args[0], tree_map(torch.clone, args[1]),
+                                   *args[2:], kv_len=C)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()

@@ -1,15 +1,13 @@
 """The serving engine's steps, which write the caches the engine owns in
-place, held bit for bit to the pure steps on the CPU: to
-``make_decode_step`` and ``make_mixed_step`` with their defaults (one
-copy of the caches in front of the same body), and to the copy-on-write
-steps written plainly here (the chunk into a slice of the caches, the
-slice written into a copy, the decode into another copy and a merge over
+place, held bit for bit on the CPU to the copy-on-write steps written
+plainly here (the chunk into a copy of the slot's caches, that written
+into a copy of the caches, the decode into another copy and a merge over
 the whole caches), which share none of the engine's masking.
 
 Each reduced config is served through ``ServerEngine`` with its steps
-wrapped: before every engine step both pure steps run on the same state,
-and every cache leaf, ``length``, ``last_token``, ``active`` and token
-must agree, while the engine's cache leaves keep their storage. The run
+wrapped: before every engine step the copy-on-write step runs on the same
+state, and every cache leaf, ``length``, ``last_token``, ``active`` and
+token must agree, while the engine's cache leaves keep their storage. The run
 has slots prefilling, decoding, free and finished at once, a ring cache
 that wraps (gemma2, recurrentgemma), int8 KV and MLA latents, recurrent
 states, the stub inputs (paligemma's patches, whisper's frames; whisper
@@ -25,8 +23,7 @@ from repro_torch.core.types import ServicePrimitives
 from repro_torch.models import model as M
 from repro_torch.models.params import tree_flatten, tree_map
 from repro_torch.serving.engine import ServerEngine, SlotRequest
-from repro_torch.serving.steps import (greedy_sample, make_decode_step,
-                                       make_mixed_step)
+from repro_torch.serving.steps import greedy_sample
 from test_torch_gpu import _stubs
 
 B, C, MAX_LEN = 4, 8, 64
@@ -51,7 +48,8 @@ def _cow_decode(cfg):
         act = state["active"]
         logits, new = M.forward_decode(cfg, params,
                                        state["last_token"][:, None],
-                                       state["length"], state["caches"])
+                                       state["length"],
+                                       tree_map(torch.clone, state["caches"]))
         nxt = greedy_sample(logits)
         caches = tree_map(lambda n, o: torch.where(
             act.reshape((1, -1) + (1,) * (n.dim() - 2)), n, o),
@@ -69,7 +67,8 @@ def _cow_mixed(cfg, chunk):
     dec = _cow_decode(cfg)
 
     def step(params, state, p_slot, tokens, pos0, kv_len=None, **stubs):
-        sub = tree_map(lambda a: a[:, p_slot:p_slot + 1], state["caches"])
+        sub = tree_map(lambda a: a[:, p_slot:p_slot + 1].clone(),
+                       state["caches"])
         positions = pos0 + torch.arange(chunk, dtype=torch.int32)[None]
         logits, sub = M.forward_prefill(cfg, params, tokens[None], positions,
                                         sub, continuation=True,
@@ -89,23 +88,22 @@ def _cow_mixed(cfg, chunk):
     return step
 
 
-def _lockstep(pures, step, ptrs, count, **stubs):
-    """``step`` in the engine's place, checked against each of ``pures``
-    run first on the same state."""
+def _lockstep(cow, step, ptrs, count, **stubs):
+    """``step`` in the engine's place, checked against ``cow`` run first
+    on the same state."""
     def run(params, state, *args, **kw):
-        wants = [pure(params, state, *args, **kw, **stubs) for pure in pures]
+        want = cow(params, state, *args, **kw, **stubs)
         got = step(params, state, *args, **kw, **stubs)
         g_leaves = _leaves(got[0])
         assert len(g_leaves) == len(ptrs)
-        for want in wants:
-            for g, w in zip(got[1:], want[1:]):
-                _same(g, w)
-            w_leaves = _leaves(want[0])
-            assert len(w_leaves) == len(g_leaves)
-            for g, w in zip(g_leaves, w_leaves):
-                _same(g, w)
-            for k in ("length", "last_token", "active"):
-                _same(got[0][k], want[0][k])
+        for g, w in zip(got[1:], want[1:]):
+            _same(g, w)
+        w_leaves = _leaves(want[0])
+        assert len(w_leaves) == len(g_leaves)
+        for g, w in zip(g_leaves, w_leaves):
+            _same(g, w)
+        for k in ("length", "last_token", "active"):
+            _same(got[0][k], want[0][k])
         assert [a.data_ptr() for a in g_leaves] == ptrs
         count.append(len(args))
         return got
@@ -126,10 +124,9 @@ def test_engine_steps_in_place_match_the_pure_steps(arch, over):
     stubs = {k: torch.from_numpy(v) for k, v in _stubs(cfg, 1, rng).items()}
     ptrs = [a.data_ptr() for a in _leaves(eng.state)]
     steps = []
-    eng._decode = _lockstep([make_decode_step(cfg), _cow_decode(cfg)],
-                            eng._decode, ptrs, steps)
-    eng._mixed = _lockstep([make_mixed_step(cfg, C), _cow_mixed(cfg, C)],
-                           eng._mixed, ptrs, steps, **stubs)
+    eng._decode = _lockstep(_cow_decode(cfg), eng._decode, ptrs, steps)
+    eng._mixed = _lockstep(_cow_mixed(cfg, C), eng._mixed, ptrs, steps,
+                           **stubs)
 
     def serve(rid, n, decode_len):
         req = SlotRequest(rid, 0, n, decode_len)

@@ -29,7 +29,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.types import ServicePrimitives
 from repro_torch.models import model as TM
 from repro_torch.models import moe as TMoE
-from repro_torch.models.params import _walk, params_from_numpy
+from repro_torch.models.params import _walk, params_from_numpy, tree_map
 from repro_torch.serving import steps as TS
 from repro_torch.serving.engine import ServerEngine, SlotRequest
 from test_torch_gpu import _stubs
@@ -236,7 +236,8 @@ def test_decode_step_leaves_inactive_slots_alone(arch, kv_quant):
     state = dict(st, caches=caches, length=torch.full((B,), S,
                                                       dtype=torch.int32),
                  last_token=nxt, active=torch.tensor([True, False, True]))
-    new, _ = TS.make_decode_step(cfg)(tp, state)
+    # the step writes the caches it is given: it gets a copy
+    new, _ = TS.make_decode_step(cfg)(tp, tree_map(torch.clone, state))
     names = set()
     for seg_new, seg_old in zip(new["caches"], caches):
         for blk, old in zip(seg_new.values(), seg_old.values()):

@@ -30,7 +30,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.planning import solve_bundled_lp
 from repro_torch.core.types import Pricing, ServicePrimitives, WorkloadClass
 from repro_torch.launch.serve import main, serve
-from repro_torch.models.params import params_from_numpy
+from repro_torch.models.params import params_from_numpy, tree_map
 from repro_torch.serving.cluster import RealCluster
 from repro_torch.serving.engine import ServerEngine, SlotRequest
 from repro_torch.serving.steps import (init_server_state, make_decode_step,
@@ -72,7 +72,9 @@ def test_mixed_step_prefill_isolation():
 
     s_solo = dec(params, setup())[0]
     before = setup()
-    s_mixed, dec_tokens, _ = mixed(params, before, 3, chunk,
+    # the step writes the caches it is given: it gets a copy
+    s_mixed, dec_tokens, _ = mixed(params, tree_map(torch.clone, before), 3,
+                                   chunk,
                                    torch.zeros((1, 1), dtype=torch.int32),
                                    kv_len=C)
     # decode slots 0 and 1 advanced identically in both modes
@@ -212,8 +214,8 @@ def test_attention_mixed_step_prefill_isolation(arch):
     s_solo = make_decode_step(cfg)(params, setup())[0]
     before = setup()
     s_mixed, _, _ = make_mixed_step(cfg, C)(
-        params, before, 3, chunk, torch.zeros((1, 1), dtype=torch.int32),
-        kv_len=C)
+        params, tree_map(torch.clone, before), 3, chunk,
+        torch.zeros((1, 1), dtype=torch.int32), kv_len=C)
     assert torch.equal(s_solo["last_token"][:2], s_mixed["last_token"][:2])
     assert torch.equal(s_solo["length"][:2], s_mixed["length"][:2])
     for solo, mix, old in zip(_leaves(s_solo["caches"]),
