@@ -27,7 +27,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``timeit_median_cuda`` gives, as the calibration measures it, and the
    bound: the larger of the bytes the function must move over 3.35 TB/s
    and its FLOPs over the peak rate of its type (989 TFLOP/s bf16
-   tensor-core, 67 TFLOP/s f32), the H100 SXM data sheet;
+   tensor-core, 67 TFLOP/s f32), the H100 SXM data sheet.  B4, MLA's
+   latent attention, at the DeepSeek-V3 cell's widths (128 heads, 512 +
+   64): its decode (64 rows over their own 8192 slots, lengths spread
+   over 1..8192) and its chunk (512 queries over one slot ending at 512,
+   2048, 6144 and 8192 keys, and at 2048 from position 0), NaN past each
+   end, held to the plain version as the card tests hold it
+   (``tests/mla_tolerance.py``); its route is its split into pieces, and
+   SDPA, which takes no 576-wide key beside a 512-wide value, gives no
+   time;
 3b. SSD scan vs plain -- the same for the Mamba-2 chunk scan (B3), bf16
    and f32: the serving engine's chunk (B=1 S=16, mamba2-130m's heads
    H=24 P=64 N=128), the config's chunk (B=4 S=2048), the odd shapes of
@@ -162,10 +170,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    time), grok-1's B=4 S=2048 and whisper's B=4 S=448.  (b) paligemma
    (text only, as the engine serves it), grok-1, deepseek-v3 and
    recurrentgemma-2b through ``serve`` (4 servers, batch cap 4, chunk
-   16, the two classes, f32 caches) with 8 requests a model where phases
-   5 and 6 send 24: every request must complete and B1 launch once per
-   attention layer per iteration; prints the host wall per mixed and
-   solo iteration.  (c) a whole-prompt ``make_prefill_step(kernel_impl=
+   16, the two classes, f32 caches; deepseek-v3's in bf16, the dtype of
+   its benchmark cell, so that MLA takes B4) with 8 requests a model
+   where phases 5 and 6 send 24: every request must complete, B1 launch
+   once per attention layer per iteration and B4 once per MLA layer per
+   decode and per chunk (twice a mixed iteration, once a solo one); the
+   served B4 launches are the ``kernels`` line's; prints the host wall
+   per mixed and solo iteration.  (c) a whole-prompt ``make_prefill_step(kernel_impl=
    "pallas")`` with bf16 caches and 8 ``forward_decode`` steps:
    paligemma B=4 over 256 stub patches and 512 tokens (B2 once per layer
    on tensor cores with ``prefix_len=256``), whisper B=4 over its 1500
@@ -386,6 +397,9 @@ A10_DEPTH = {"deepseek-v3-671b": 4, "grok-1-314b": 2}
 A10_SERVE = ("paligemma-3b", "grok-1-314b", "deepseek-v3-671b",
              "recurrentgemma-2b")
 A10_REQUESTS = 8
+# the caches of (b), f32 unless named here: deepseek-v3's in its
+# benchmark cell's dtype, where MLA's decode and chunk run B4
+A10_CACHE = {"deepseek-v3-671b": "bfloat16"}
 # the whole-prompt prefill (B, text tokens) and the decodes after it
 A10_WHOLE = {"paligemma-3b": (4, 512), "whisper-base": (4, 448),
              "grok-1-314b": (4, 2048), "deepseek-v3-671b": (4, 2048)}
@@ -700,6 +714,99 @@ def _prefill_row(torch, ms, dname, desc, args, kw):
     return row
 
 
+MLA_SCALE = 0.1352  # deepseek-v3's 1/sqrt(192) x YaRN's mscale^2
+
+
+def _mla_cases(torch, gen):
+    """(description, (clean args), (args with NaN past each end), kwargs)
+    of every B4 check, at the DeepSeek-V3 cell's widths (128 heads, a
+    512-wide latent and a 64-wide RoPE key): its decode, 64 rows over
+    their own 8192 slots at lengths spread over 1..8192 (both ends
+    included), and its chunk, 512 queries over one slot ending at 512 ..
+    8192 keys, from position 0 and from mid-cache."""
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+
+    cases = []
+    B, S, H = 64, 8192, 128
+    lens = [0, 8191, 1, 17, 48, 1023, 1024, 1025, 4095] + [
+        int(x) for x in torch.randint(0, S, (B - 9,), generator=gen,
+                                      device="cuda").tolist()]
+    pos = torch.tensor(lens, dtype=torch.int32, device="cuda")[:, None]
+    args = (rnd(B, 1, H, 512), rnd(B, 1, H, 64), rnd(B, S, 512),
+            rnd(B, S, 64), pos)
+    past = torch.arange(S, device="cuda")[None, :, None] > pos[:, :, None]
+    nan = args[:2] + tuple(a.masked_fill(past, float("nan"))
+                           for a in args[2:4]) + (pos,)
+    cases.append(("B=64 S=8192 H=128 decode, lengths 1..8192", args, nan,
+                  {}))
+    c, r = rnd(1, S, 512), rnd(1, S, 64)
+    for off, end in ((0, 512), (1536, 2048), (5632, 6144), (7680, 8192),
+                     (0, 2048)):
+        q = (rnd(1, 512, H, 512), rnd(1, 512, H, 64))
+        qpos = (off + torch.arange(512, dtype=torch.int32,
+                                   device="cuda"))[None]
+        cn, rn = c.clone(), r.clone()
+        cn[:, end:], rn[:, end:] = float("nan"), float("nan")
+        cases.append((f"C=512 q_offset={off} kv_len={end} H=128 chunk",
+                      q + (c, r, qpos), q + (cn, rn, qpos),
+                      {"kv_len": end}))
+    return cases
+
+
+def _mla_tolerance():
+    """``tests/mla_tolerance.py``: B4's tolerance, one definition for the
+    card tests and this script."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "mla_tolerance", ROOT / "tests" / "mla_tolerance.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _mla_row(torch, ms, desc, args, nan, kw):
+    """One B4 check: the kernel over latents with NaN past each query's
+    end against the plain version over clean ones, held as the card tests
+    hold it (``tests/mla_tolerance.py``: one bf16 step of p where the two
+    f32 scores straddle a rounding point; at most 0.5% of outputs past one
+    rounding step of the output); times, the bound."""
+    from repro_torch.kernels.mla_attention.ops import (
+        mla_attention, mla_attention_plain, mla_split)
+
+    tol = _mla_tolerance()
+    ql, qr, ck, kr, pos = args
+    n = mla_attention.launches
+    out = mla_attention(*nan, scale=MLA_SCALE, **kw)
+    if mla_attention.launches != n + 1:
+        raise AssertionError(f"mla_attention {desc}: no launch")
+    kv = kw.get("kv_len", ck.shape[1])
+    gap = tol.mla_gap(out, *args, MLA_SCALE, kw.get("kv_len"))
+    if not gap["finite"] or not gap["within"] or gap["past"] > tol.PAST:
+        raise AssertionError(f"mla_attention {desc}: {gap}")
+    err, past = gap["max_abs_err"], gap["past"]
+    B, Sq, H = ql.shape[:3]
+    last = torch.clamp(pos.long(), max=kv - 1) + 1
+    keys = int(last.sum())
+    el = 2
+    bytes_ = el * (((kv if Sq > 1 else keys) + B * Sq * H) * 576
+                   + B * Sq * H * 512) + 4 * B * Sq
+    flops = float(keys) * H * (2 * 576 + 2 * 512)
+    split, n_split = mla_split(B * Sq, H, kv,
+                               torch.cuda.get_device_properties(0)
+                               .multi_processor_count)
+    row = dict(shape=desc, dtype="bfloat16", max_abs_err=err,
+               route=f"pieces={n_split} split={split} past_one_step={past}",
+               ms=ms(lambda: mla_attention(*args, scale=MLA_SCALE, **kw)),
+               plain_ms=ms(lambda: mla_attention_plain(
+                   *args, scale=MLA_SCALE, **kw)),
+               library_ms=None)  # SDPA: no 576-wide key with a 512 value
+    row["bound_ms"], row["bound_by"] = _bound("bfloat16", bytes_, flops)
+    return row
+
+
 def _print_rows(rows, tag="kernel"):
     for name, rs in rows.items():
         for r in rs:
@@ -728,6 +835,8 @@ def check_kernels(torch):
         for desc, args, kw in _prefill_cases(torch, gen, dt):
             rows["prefill_attention"].append(
                 _prefill_row(torch, ms, dname, desc, args, kw))
+    rows["mla_attention"] = [_mla_row(torch, ms, *case)
+                             for case in _mla_cases(torch, gen)]
     _print_rows(rows)
     return rows
 
@@ -919,10 +1028,12 @@ def _b1_routes():
                                  key=lambda kv: -kv[1]))
 
 
-def run_serving(torch, arch, *, cfg=None, n_req=24, dtype=None):
+def run_serving(torch, arch, *, cfg=None, n_req=24, dtype=None,
+                cache_dtype=None):
     """The serving path at full width: ``arch`` (or ``cfg``, a depth cut
     of it) through ``serve``, ``n_req`` requests over weights drawn in
-    ``dtype`` (f32 by default).
+    ``dtype`` (f32 by default); the engines' caches in ``cache_dtype``
+    where given (``serve``'s own are f32, as the reference's).
 
     ``torch.profiler`` records ``PROFILE_N`` iterations of this same run
     from iteration ``PROFILE_FROM * n_req // 24`` (the first are warm-up;
@@ -965,8 +1076,15 @@ def run_serving(torch, arch, *, cfg=None, n_req=24, dtype=None):
             window["open"] = False
         return res
 
+    engine_init = ServerEngine.__init__
+
+    def init(self, *args, **kw):  # the engine, its caches in cache_dtype
+        engine_init(self, *args, **dict(kw, dtype=cache_dtype))
+
     _zero_counts()
     ServerEngine.step = step
+    if cache_dtype is not None:
+        ServerEngine.__init__ = init
     try:
         t0 = time.perf_counter()
         m = serve(cfg, servers=4, requests=n_req, batch_cap=4, chunk=16,
@@ -976,6 +1094,7 @@ def run_serving(torch, arch, *, cfg=None, n_req=24, dtype=None):
         wall = time.perf_counter() - t0
     finally:
         ServerEngine.step = engine_step
+        ServerEngine.__init__ = engine_init
         if window["open"]:  # never leave the tracer running
             prof.stop()
     modes = window["modes"]
@@ -1101,6 +1220,10 @@ def check_model_outputs(torch):
 
 def _n_attn(cfg) -> int:
     return sum(s.mixer in ("attn", "attn_local") for s in cfg.block_specs())
+
+
+def _n_mla(cfg) -> int:
+    return sum(s.mixer == "mla" for s in cfg.block_specs())
 
 
 def _finite(torch, tree) -> bool:
@@ -2435,10 +2558,11 @@ def check_a10(torch, smi: str):
     """Phase 10: paligemma-3b, whisper-base, grok-1 (2 of 64 layers),
     deepseek-v3 (4 of 61) and recurrentgemma-2b at their published widths,
     weights drawn on the card in the config's ``param_dtype``: (a) B1 and
-    B2 at their shapes; (b) served through ``serve`` (f32 caches, 8
-    requests); (c) a whole-prompt prefill step with bf16 caches and
-    decodes; (d) reduced models on the card against the CPU.  Returns
-    (kernel rows, launches of (b) and (c))."""
+    B2 at their shapes; (b) served through ``serve`` (f32 caches, but
+    deepseek-v3's in bf16 through B4; 8 requests); (c) a whole-prompt
+    prefill step with bf16 caches and decodes; (d) reduced models on the
+    card against the CPU.  Returns (kernel rows, launches of (b) and (c),
+    B4's launches in (b))."""
     import gc
 
     from repro_torch.configs import get_config
@@ -2449,9 +2573,10 @@ def check_a10(torch, smi: str):
     print(f"[a10] (a) kernels checked in {time.perf_counter() - t0:.1f} s")
 
     from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.mla_attention.ops import mla_attention
     from repro_torch.kernels.prefill_attention.ops import prefill_attention
 
-    total, stages = {}, {}
+    total, stages, served_b4 = {}, {}, 0
     for arch in A10_ARCHS:
         full = get_config(arch)
         cfg = full.replace(n_layers=A10_DEPTH.get(arch, full.n_layers))
@@ -2469,17 +2594,31 @@ def check_a10(torch, smi: str):
             t1 = time.perf_counter()
             torch.cuda.reset_peak_memory_stats()
             _zero_counts()
-            m, served = run_serving(torch, arch, cfg=cfg, n_req=A10_REQUESTS,
-                                    dtype=dtype)
+            cache = A10_CACHE.get(arch)
+            mla_attention.launches = 0
+            m, served = run_serving(
+                torch, arch, cfg=cfg, n_req=A10_REQUESTS, dtype=dtype,
+                cache_dtype=getattr(torch, cache) if cache else None)
+            b4 = mla_attention.launches
             stages[arch, "serve"] = (served, dict(decode_attention.routes),
                                      prefill_attention.launches_tc,
                                      prefill_attention.launches_fp32)
-            iters = len(m.iter_wall["mixed"]) + len(m.iter_wall["solo"])
+            mixed = len(m.iter_wall["mixed"])
+            iters = mixed + len(m.iter_wall["solo"])
             if served["decode_attention"] != n_attn * iters:
                 raise AssertionError(
                     f"serving {arch}: decode_attention launched "
                     f"{served['decode_attention']} times for {iters} "
                     f"iterations x {n_attn} attention layers")
+            # a decode every iteration, a chunk every mixed one, each
+            # through B4 in every MLA layer where the caches are bf16
+            n_mla = _n_mla(cfg) if cache == "bfloat16" else 0
+            if b4 != n_mla * (iters + mixed):
+                raise AssertionError(
+                    f"serving {arch} ({cache or 'float32'} caches): "
+                    f"mla_attention launched {b4} times for {iters} "
+                    f"iterations ({mixed} mixed) x {n_mla} MLA layers")
+            served_b4 += b4
             for k, n in served.items():
                 total[k] = total.get(k, 0) + n
             gc.collect()
@@ -2487,8 +2626,11 @@ def check_a10(torch, smi: str):
             print(f"[a10] (b) {arch} served {A10_REQUESTS} requests (cut "
                   f"from 24) in {time.perf_counter() - t1:.1f} s: {iters} "
                   f"iterations x {n_attn} attention layers = "
-                  f"{served['decode_attention']} B1 launches; peak "
-                  f"allocated {torch.cuda.max_memory_allocated()} bytes")
+                  f"{served['decode_attention']} B1 launches; {iters} "
+                  f"decodes + {mixed} chunks x {_n_mla(cfg)} MLA layers "
+                  f"with {cache or 'float32'} caches = {b4} B4 launches; "
+                  f"peak allocated {torch.cuda.max_memory_allocated()} "
+                  f"bytes")
         if arch in A10_WHOLE:
             t1 = time.perf_counter()
             torch.cuda.reset_peak_memory_stats()
@@ -2543,7 +2685,9 @@ def check_a10(torch, smi: str):
             if r["launches"] <= 0:
                 raise AssertionError(f"{k} {r['dtype']} {r['shape']}: its "
                                      f"stage never launched this shape")
-    return rows, total
+    if served_b4 <= 0:
+        raise AssertionError("phase 10 never served through mla_attention")
+    return rows, total, served_b4
 
 
 # ---------------------------------------------------------------- phase 11
@@ -3417,7 +3561,7 @@ def main() -> int:
 
     # 10. the rest of the data plane: prefix-LM, encoder, MLA, MoE
     t0 = time.perf_counter()
-    a10_rows, a10_launches = check_a10(torch, smi)
+    a10_rows, a10_launches, launches["mla_attention"] = check_a10(torch, smi)
     for k, rs in a10_rows.items():
         rows[k] += rs
         launches[k] += a10_launches[k]
@@ -3440,7 +3584,9 @@ def main() -> int:
     main_shape = {"decode_attention": "B=16 S=512 main",
                   "prefill_attention": "C=512 kv_len=2048 H=48 KV=8 D=128 "
                                        "grok chunk softcap=30",
-                  "ssd_scan": "B=1 S=16 H=24 engine chunk"}
+                  "ssd_scan": "B=1 S=16 H=24 engine chunk",
+                  "mla_attention": "B=64 S=8192 H=128 decode, lengths "
+                                   "1..8192"}
     sources = {"decode_attention": (
         "src/repro_torch/kernels/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention/kernel.py:79"),
@@ -3449,7 +3595,10 @@ def main() -> int:
         "src/repro/kernels/prefill_attention/kernel.py:93"),
         "ssd_scan": (
         "src/repro_torch/kernels/csrc/ssd_scan.cu",
-        "src/repro/kernels/ssd_scan/kernel.py:68")}
+        "src/repro/kernels/ssd_scan/kernel.py:68"),
+        "mla_attention": (
+        "src/repro_torch/kernels/csrc/mla_attention.cu",
+        "none: src/repro/models/mla.py attends with jnp.einsum")}
     line = []
     for k, rs in rows.items():
         r = next(r for r in rs if r["shape"] == main_shape[k]

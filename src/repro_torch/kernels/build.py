@@ -22,7 +22,8 @@ __all__ = ["ARCH_FLAGS", "BUILD_DIR", "KERNELS", "build_all", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("decode_attention", "prefill_attention", "ssd_scan", "ctmc_scan")
+KERNELS = ("decode_attention", "prefill_attention", "ssd_scan", "ctmc_scan",
+           "mla_attention")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                        "-Xptxas", "-v")

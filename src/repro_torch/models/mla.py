@@ -21,6 +21,14 @@ and every other contraction promotes its operands as ``jnp.einsum`` does
 (bf16 activations against an f32 cache read in f32).  As in
 ``models.attention``, the cache writers write into the cache they are
 given.
+
+The decode and the continuation chunk attend over the latent cache
+through :func:`_attend`: B4 (``kernels/mla_attention``) where the cache
+holds latents in the queries' dtype, bf16 -- on the card the kernel, on
+the CPU its plain version -- and that plain version itself for int8
+latents and f32 caches.  The whole-prompt prefill (and with it training)
+runs the plain version alone, one block of queries at a time over the
+keys up to the block's last.
 """
 
 from __future__ import annotations
@@ -29,7 +37,8 @@ import numpy as np
 import torch
 
 from ..compat import resolve_device
-from .attention import _NEG, _dequantize_kv, _einsum, _quantize_kv, _scatter
+from ..kernels.mla_attention.ops import mla_attention, mla_attention_plain
+from .attention import _dequantize_kv, _einsum, _quantize_kv, _scatter
 from .config import MLAConfig
 from .layers import apply_rope, rmsnorm, rope_table
 from .params import PDef
@@ -148,11 +157,19 @@ def _latents(cfg: MLAConfig, p, x, positions):
     return c_kv, _rope(cfg, k_rope[:, :, None, :], positions)[:, :, 0, :]
 
 
-def _scores(eq_lat, eq_rope, q_lat, q_rope, ckv, krope, scale):
-    """Absorbed scores in f32: latent part plus RoPE part."""
-    return (torch.einsum(eq_lat, q_lat.float(), ckv.float())
-            + torch.einsum(eq_rope, q_rope.float(), krope.float())) \
-        * float(scale)
+def _attend(q_lat, q_rope, cache, positions, scale, x_dtype, kv_len=None):
+    """ctx (B,Sq,H,r) of queries at ``positions`` (B,Sq) over the latent
+    cache's first ``kv_len`` slots (all without it): B4 for latents in the
+    queries' dtype, bf16; its plain version for int8 latents (read back in
+    ``x_dtype``) and caches of another dtype."""
+    if "c_s" not in cache and \
+            q_lat.dtype == cache["c_kv"].dtype == torch.bfloat16:
+        return mla_attention(q_lat.contiguous(), q_rope.contiguous(),
+                             cache["c_kv"], cache["k_rope"], positions,
+                             scale=scale, kv_len=kv_len)
+    ckv, krope = _mla_read(cache, x_dtype)
+    return mla_attention_plain(q_lat, q_rope, ckv, krope, positions,
+                               scale=scale, kv_len=kv_len)
 
 
 def _out(p, ctx, x_dtype, eq_uv, eq_o):
@@ -191,31 +208,18 @@ def mla_prefill(cfg: MLAConfig, p, x, positions, cache=None, block_q=512,
     if continuation:
         if new_cache is None:
             raise ValueError("continuation needs a cache")
-        ctx_cache = new_cache if kv_len is None else \
-            {k: v[:, :kv_len] for k, v in new_cache.items()}
-        ckv_all, krope_all = _mla_read(ctx_cache, x.dtype)
         qpos = positions[0] if positions.dim() > 1 else positions
-        sc = _scores("bqhr,bsr->bhqs", "bqhk,bsk->bhqs", q_lat, q_rope,
-                     ckv_all, krope_all, scale)
-        kpos = torch.arange(ckv_all.shape[1], device=x.device)
-        sc = sc.masked_fill(kpos[None, None, None, :]
-                            > qpos[None, None, :, None], _NEG)
-        pr = torch.softmax(sc, dim=-1).to(x.dtype)
-        ctx = _einsum("bhqs,bsr->bqhr", pr, ckv_all)
+        ctx = _attend(q_lat, q_rope, new_cache, qpos[None].expand(B, -1),
+                      scale, x.dtype, kv_len)
     else:
         outs = []
         block_q = min(block_q, S)
         for s0 in range(0, S, block_q):
             s1 = min(S, s0 + block_q)  # causal static restriction: keys < s1
-            sc = _scores("bqhr,bsr->bhqs", "bqhk,bsk->bhqs",
-                         q_lat[:, s0:s1], q_rope[:, s0:s1], c_kv[:, :s1],
-                         k_rope[:, :s1], scale)
-            qpos = torch.arange(s0, s1, device=x.device)
-            kpos = torch.arange(s1, device=x.device)
-            sc = sc.masked_fill(kpos[None, None, None, :]
-                                > qpos[None, None, :, None], _NEG)
-            pr = torch.softmax(sc, dim=-1).to(x.dtype)
-            outs.append(torch.einsum("bhqs,bsr->bqhr", pr, c_kv[:, :s1]))
+            qpos = torch.arange(s0, s1, device=x.device)[None].expand(B, -1)
+            outs.append(mla_attention_plain(
+                q_lat[:, s0:s1], q_rope[:, s0:s1], c_kv, k_rope, qpos,
+                scale=scale, kv_len=s1))
         ctx = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
     out = _out(p, ctx, x.dtype, "bqhr,rhv->bqhv", "bqhv,hvd->bqd")
     return out, new_cache
@@ -230,16 +234,8 @@ def mla_decode(cfg: MLAConfig, p, x, positions, cache):
     c_new, k_new = _latents(cfg, p, x, pos)
     b = torch.arange(B, device=x.device)[:, None]
     cache = _mla_write(cache, b, pos.long(), c_new, k_new)
-    ckv_all, krope_all = _mla_read(cache, x.dtype)
-    S = ckv_all.shape[1]
-    q_lat = torch.einsum("bshk,rhk->bshr", q_nope,
-                         p["w_uk"].to(x.dtype))[:, 0]
-    scale = _softmax_scale(cfg)
-    sc = _scores("bhr,bsr->bhs", "bhk,bsk->bhs", q_lat, q_rope[:, 0],
-                 ckv_all, krope_all, scale)
-    valid = torch.arange(S, device=x.device)[None, :] <= positions[:, None]
-    sc = sc.masked_fill(~valid[:, None, :], _NEG)
-    pr = torch.softmax(sc, dim=-1).to(x.dtype)
-    ctx = _einsum("bhs,bsr->bhr", pr, ckv_all)
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"].to(x.dtype))
+    ctx = _attend(q_lat, q_rope, cache, pos, _softmax_scale(cfg),
+                  x.dtype)[:, 0]
     out = _out(p, ctx, x.dtype, "bhr,rhv->bhv", "bhv,hvd->bd")[:, None, :]
     return out, cache

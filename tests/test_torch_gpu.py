@@ -21,6 +21,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                       decode_attention_plain,
                                                       decode_plan)
+from repro_torch.kernels.mla_attention.ops import mla_attention
 from repro_torch.kernels.prefill_attention.ops import (
     prefill_attention, prefill_attention_plain)
 from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
@@ -28,6 +29,8 @@ from repro_torch.launch.serve import serve
 from repro_torch.models import model as M
 from repro_torch.models.params import tree_map
 from repro_torch.telemetry.timing import timeit_median_cuda
+
+from mla_tolerance import mla_close
 
 pytestmark = pytest.mark.gpu
 
@@ -542,6 +545,87 @@ def test_mla_decode_on_the_card_matches_the_cpu(cuda, kv_quant):
         diff = (gc[k].cpu().float() - wc[k].float()).abs()
         assert float(diff.max()) <= (1.0 if wc[k].dtype == torch.int8
                                      else 1e-4 * float(wc[k].abs().max()))
+
+
+MLA_SCALE = 0.1352  # deepseek-v3's 1/sqrt(192) x YaRN's mscale^2
+
+
+def _bf16(shape, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=device).to(torch.bfloat16)
+
+
+def test_mla_kernel_decode_matches_plain(cuda):
+    """B4 at the cell's decode: 64 rows of 128 heads (512 + 64) over their
+    own 8192 slots, at positions spread over 0..8191 with both ends; the
+    slots past each row's position hold NaN, which must not reach it."""
+    B, S, H = 64, 8192, 128
+    lens = [0, 8191, 1, 17, 48, 1023, 1024, 1025, 4095] + [
+        int(x) for x in np.random.default_rng(0).integers(0, S, B - 9)]
+    pos = torch.tensor(lens, dtype=torch.int32, device=cuda)[:, None]
+    ql, qr = _bf16((B, 1, H, 512), 1, cuda), _bf16((B, 1, H, 64), 2, cuda)
+    ck, kr = _bf16((B, S, 512), 3, cuda), _bf16((B, S, 64), 4, cuda)
+    past = torch.arange(S, device=cuda)[None, :, None] > pos[:, :, None]
+    n = mla_attention.launches
+    got = mla_attention(ql, qr, ck.masked_fill(past, float("nan")),
+                        kr.masked_fill(past, float("nan")), pos,
+                        scale=MLA_SCALE)
+    torch.cuda.synchronize()
+    assert mla_attention.launches == n + 1
+    mla_close(got, ql, qr, ck, kr, pos, MLA_SCALE)
+
+
+@pytest.mark.parametrize("q_offset,kv_len", [(0, 512), (1536, 2048),
+                                             (5632, 6144), (7680, 8192),
+                                             (0, 2048), (3000, 6144)])
+def test_mla_kernel_chunk_matches_plain(cuda, q_offset, kv_len):
+    """B4 at the cell's chunk: 512 queries of 128 heads at positions
+    q_offset.. over one slot of 8192, cut at kv_len; the slots at or past
+    kv_len hold NaN."""
+    S, H = 8192, 128
+    ql, qr = _bf16((1, 512, H, 512), 5, cuda), _bf16((1, 512, H, 64), 6, cuda)
+    ck, kr = _bf16((1, S, 512), 7, cuda), _bf16((1, S, 64), 8, cuda)
+    pos = (q_offset + torch.arange(512, dtype=torch.int32, device=cuda))[None]
+    cn, rn = ck.clone(), kr.clone()
+    cn[:, kv_len:] = float("nan")
+    rn[:, kv_len:] = float("nan")
+    got = mla_attention(ql, qr, cn, rn, pos, scale=MLA_SCALE, kv_len=kv_len)
+    mla_close(got, ql, qr, ck, kr, pos, MLA_SCALE, kv_len)
+
+
+def test_mla_layer_runs_b4_with_no_host_sync(cuda):
+    """deepseek-v3's MLA layer at its published widths, bf16 weights and
+    latents: the continuation chunk and the decode each launch B4 once and
+    nothing waits on the card; an f32 cache keeps the plain path."""
+    from repro_torch.models.mla import init_mla_cache, mla_decode, mla_prefill
+    from repro_torch.models.mla import mla_defs
+    from repro_torch.models.params import init_params
+
+    cfg = get_config("deepseek-v3-671b").mla
+    d = 512
+    for dt, want in ((torch.bfloat16, 1), (torch.float32, 0)):
+        p = init_params(mla_defs(cfg, d), torch.Generator().manual_seed(0),
+                        dtype=dt, device=cuda)
+        g = torch.Generator(device=cuda).manual_seed(1)
+        x = torch.randn(1, 64, d, generator=g, device=cuda).to(dt)
+        cache = init_mla_cache(cfg, 2, 256, dt, device=cuda)
+        pos = torch.arange(64, dtype=torch.int32, device=cuda)[None]
+        view = {k: v[:1] for k, v in cache.items()}
+        mla_prefill(cfg, p, x, pos, cache=view)
+        dpos = torch.tensor([96, 5], dtype=torch.int32, device=cuda)
+        torch.cuda.synchronize()
+        n = mla_attention.launches
+        torch.cuda.set_sync_debug_mode("error" if want else "default")
+        try:
+            out, _ = mla_prefill(cfg, p, x[:, :32], pos[:, :32] + 64,
+                                 cache=view, continuation=True, kv_len=96)
+            dec, _ = mla_decode(cfg, p, x[:, :2].transpose(0, 1), dpos,
+                                cache)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert mla_attention.launches - n == 2 * want, dt
+        assert torch.isfinite(out).all() and torch.isfinite(dec).all()
 
 
 def test_whole_prompt_prefill_runs_b2_on_tensor_cores(cuda):
